@@ -4,27 +4,37 @@
     python3 chip_smoke.py [--profile]
 
 1. Prints the card's name and power limit (nvidia-smi).
-2. Builds the four CUDA kernels (csrc/*.cu, one nvcc each, in parallel) and
-   the native entropy library, and prints the build seconds.
+2. Builds the eight CUDA kernels (csrc/*.cu, one nvcc each, in parallel)
+   and the native entropy library, and prints the build seconds.
 3. Drives the main path once: 8 key frames of 1920x1080 through Config ->
-   Context in the slice configuration (speed 6, quantizer 100, low
-   latency, CDEF and loop restoration off).  Every kernel's launch count
-   is set to 0 just before and read just after; each must have launched.
+   Context in bench.py's keyframe configuration (speed-6 defaults, so
+   CDEF and loop restoration on; quantizer 100, low latency).  Every
+   kernel's launch count is set to 0 just before and read just after;
+   each of the eight must have launched.
 4. Holds each kernel against its plain PyTorch version on the card, on the
    inputs the main path gave it (the largest call of each):
-   intra_pred, inv_txfm and deblock must be identical; fwd_txq's levels
-   and dequantised values must be identical except where the exact
-   coefficient lies within the fp32 error bound of a .5 rounding tie, and
-   such coefficients may be at most FDCT_TIE_SHARE of them.  Times each
-   (CUDA events, warmed) beside its plain version, its bound and, for
-   fwd_txq, the torch.matmul forward transform.
+   intra_pred, inv_txfm, deblock, cdef_dir, cdef_filter (search and
+   apply) and wiener_lr must be identical; wiener_solve's taps identical
+   or 1 apart where the exact coef * 128 lies within 1e-9 of a .5 tie;
+   fwd_txq's levels and dequantised values identical except where the
+   exact coefficient lies within the fp32 error bound of a .5 rounding
+   tie, and such coefficients may be at most FDCT_TIE_SHARE of them.
+   Times each (CUDA events, warmed) beside its plain version, its bound
+   and, for fwd_txq, the torch.matmul forward transform.
 5. Checks the output: with libdav1d present the stream decodes to the
    encoder's recon; in every case 16 sampled superblocks a frame re-derive
    from their records with the numpy oracles onto the pre-filter recon,
-   and deblock_np over the pre-filter frame gives the output recon.
-6. Times a second encode of the same frames (frames/s), then an encode of
-   the first four with each device stage timed serialised; with --profile
-   also under torch.profiler (the card's busy time by kernel; minutes).
+   and on FILTER_FRAMES frames deblock_np, cdef_np with each superblock's
+   strengths and lrf_np's Wiener filter on the chosen units, over the
+   pre-filter frame, give the output recon exactly.
+6. Drives the keyframe path with CDEF and loop restoration off on 2
+   frames, with the counts set to 0 before it: K1-K4 must launch, and its
+   output is checked the same way.
+7. Times a second encode of the main path's frames (frames/s), then an
+   encode of the first four with each device stage timed serialised
+   (wavefront pass, band maps, the filter chain and, inside it, CDEF and
+   LR); with --profile also under torch.profiler (the card's busy time by
+   kernel; minutes).
 
 The line before the last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero.
@@ -40,6 +50,9 @@ import time
 
 W, H, NFRAMES = 1920, 1080, 8
 SB_SAMPLES = 16
+FILTER_FRAMES = 2  # frames whose whole filter chain is re-derived in numpy
+OFF_FRAMES = 2  # frames of the CDEF/LR-off path
+WIENER_TIE = 1e-9  # |coef * 128 - (k + .5)| where a tap may round apart
 FDCT_TIE_SHARE = 1e-3
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 PEAK_FP32 = 67e12  # H100 SXM fp32 outside the tensor cores, FLOP/s
@@ -68,17 +81,20 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def encode(frames, check: bool, device: str = "cuda"):
-    """Encode `frames` through the public API on `device`.  With check,
-    keep each frame's pre-filter planes and wavefront records."""
+def encode(frames, check: bool, device: str = "cuda", filters: bool = True):
+    """Encode `frames` through the public API on `device`, in bench.py's
+    keyframe configuration (filters=False: with CDEF and loop restoration
+    off).  With check, keep each frame's pre-filter planes and wavefront
+    records."""
     from rav1e_tpu_torch import Config, EncoderConfig, SpeedSettings
     from rav1e_tpu_torch.api.context import EncoderError, EncoderStatus
     from rav1e_tpu_torch.models import intra_frame
     from rav1e_tpu_torch.ops import filter_chain
 
     ss = SpeedSettings.from_preset(6)
-    ss.cdef = False
-    ss.lrf = False
+    if not filters:
+        ss.cdef = False
+        ss.lrf = False
     cfg = Config(enc=EncoderConfig(
         width=W, height=H, quantizer=100, min_key_frame_interval=1,
         max_key_frame_interval=1, rdo_lookahead_frames=8, low_latency=True,
@@ -129,16 +145,88 @@ def encode(frames, check: bool, device: str = "cuda"):
     return [p.data for p in pkts], recon, seen
 
 
+def _fwd_work(a, k, levels: bool):
+    resid, Fv = a[0], a[1]
+    n, m = resid.shape[-1], Fv.shape[-2]
+    nb = resid.numel() // (n * n)
+    return (resid.numel() * 4 + Fv.numel() * 8
+            + nb * ((m * m * 8 if levels else 0) + 12),
+            nb * 2 * m * n * (n + m))
+
+
+def _cdef_filter_work(a, k):
+    """Bytes and operations of one K6 launch: search reads six planes and
+    writes 11 sums a superblock, apply reads three planes and writes
+    three; both read the block maps (int32 dirs and var, u8 active); ~150
+    integer operations a sample and candidate (12 taps of constrain,
+    min/max, the rounding)."""
+    h, w = a[0].shape
+    ny, nc = a[0].numel(), 2 * a[1].numel()
+    nb, nsb = a[6].numel(), -(-h // 64) * -(-w // 64)
+    if a[10] == 0:  # search
+        return (ny + nc) * 8 + nsb * 44 + nb * 9, (ny * 8 + nc * 3) * 150
+    return (ny + nc) * 8 + nsb * 4 + nb * 9, (ny + nc) * 150
+
+
+# (bytes, operations) of one call of each kernel from its arguments: each
+# input read once, each output written once; operations are fp32 FLOPs
+# (K2) or integer operations (the rest), counted per sample
+WORK = {
+    "intra_pred": lambda a, k: (
+        a[0].numel() * 8 + a[2].numel() * 2
+        + a[0].shape[0] * (61 if a[5] else 7) * a[4] ** 2 * 4,
+        a[0].shape[0] * (61 if a[5] else 7) * a[4] ** 2 * 10),
+    "fwd_txq": lambda a, k: _fwd_work(a, k, True),
+    "fwd_rd_float": lambda a, k: _fwd_work(a, k, False),
+    "inv_txfm": lambda a, k: (a[0].numel() * 8,
+                              a[0].numel() * 4 * a[0].shape[-1].bit_length()),
+    "deblock": lambda a, k: (a[0].numel() * 8 + a[5].numel() * 9,
+                             a[0].numel() * 100 / 4),
+    # K5: ~14 a sample (bins and weighted squares)
+    "cdef_dir": lambda a, k: (a[0].numel() * 4 + a[0].numel() // 64 * 8,
+                              a[0].numel() * 14),
+    "cdef_filter": _cdef_filter_work,
+    # K7: ~30 a sample and direction
+    "wiener_solve": lambda a, k: (sum(d.numel() for d in a[0]) * 8 + 84,
+                                  sum(d.numel() for d in a[0]) * 2 * 30),
+    # K8: ~70 a sample (the two 7-tap passes, the stripe rule, the SSE)
+    "wiener_lr": lambda a, k: (a[8] * a[9] * 16, a[8] * a[9] * 70),
+}
+
+
+def bound_ms(nbytes, ops) -> float:
+    return max(nbytes / PEAK_BYTES, ops / PEAK_FP32) * 1e3
+
+
 class Capture:
-    """Wraps the kernels' public functions during the main path and keeps
-    the inputs of each kernel's largest call (cloned)."""
+    """Wraps the kernels' public functions during the main path, keeps the
+    inputs of each kernel's largest call (cloned) and sums the bound of
+    every call by stage (the wavefront pass, the band maps, the filter
+    chain): the least time the card could take for the stage's kernel
+    work."""
 
     def __init__(self):
-        from rav1e_tpu_torch.ops import deblock, intra, transforms
+        from rav1e_tpu_torch.models import device_pipeline
+        from rav1e_tpu_torch.ops import (cdef, deblock, filter_chain, intra,
+                                         lrf, transforms)
 
         self.calls = {}
+        self.bounds = {}
+        self.stage = "wavefront_pass"
         self._undo = []
+        for mod, name, stage in (
+                (device_pipeline, "launch_band_rd_maps", "band_maps"),
+                (filter_chain, "launch_filter_chain", "filter_chain")):
+            self._stage(mod, name, stage)
         for mod, name, key, size in (
+                (cdef, "cdef_dir", "cdef_dir", lambda a, k: a[0].numel()),
+                (cdef, "cdef_filter",
+                 lambda a, k: ("cdef_filter_search" if a[10] == cdef.SEARCH
+                               else "cdef_filter_apply"),
+                 lambda a, k: a[0].numel()),
+                (lrf, "wiener_solve", "wiener_solve",
+                 lambda a, k: sum(d.numel() for d in a[0])),
+                (lrf, "wiener_lr", "wiener_lr", lambda a, k: a[8] * a[9]),
                 (intra, "intra_pred", "intra_pred",
                  lambda a, k: a[0].shape[0] * (61 if a[5] else 7) * a[4] ** 2),
                 (transforms, "fwd_txq", "fwd_txq",
@@ -151,18 +239,36 @@ class Capture:
                  lambda a, k: a[0].numel())):
             self._wrap(mod, name, key, size)
 
+    def _stage(self, mod, name, stage):
+        orig = getattr(mod, name)
+
+        def run(*a, **k):
+            self.stage = stage
+            try:
+                return orig(*a, **k)
+            finally:
+                self.stage = "wavefront_pass"
+
+        setattr(mod, name, run)
+        self._undo.append((mod, name, orig))
+
     def _wrap(self, mod, name, key, size):
         import torch
 
         orig = getattr(mod, name)
 
         def clone(v):
+            if isinstance(v, (list, tuple)):
+                return type(v)(clone(x) for x in v)
             return v.clone() if torch.is_tensor(v) else v
 
         def spy(*a, **k):
             n = size(a, k)
-            if key not in self.calls or n > self.calls[key][0]:
-                self.calls[key] = (n, tuple(clone(v) for v in a),
+            kk_ = key(a, k) if callable(key) else key
+            b = bound_ms(*WORK[name if name in WORK else kk_](a, k))
+            self.bounds[self.stage] = self.bounds.get(self.stage, 0.0) + b
+            if kk_ not in self.calls or n > self.calls[kk_][0]:
+                self.calls[kk_] = (n, tuple(clone(v) for v in a),
                                    {kk: clone(v) for kk, v in k.items()})
             return orig(*a, **k)
 
@@ -199,13 +305,16 @@ def check_kernels(calls, counts, frames_per_run):
 
     out = []
 
-    def entry(name, source, replaces, err, ms, plain_ms, nbytes, ops,
+    def entry(name, source, replaces, err, ms, plain_ms, work,
               library_ms=None):
+        nbytes, ops = work
         tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
         print(json.dumps({"kernel": name, "max_abs_diff": err, "ms": ms,
                           "plain_ms": plain_ms, "library_ms": library_ms,
                           "launches_per_frame": counts[name]
-                          / frames_per_run}))
+                          / frames_per_run, "bound_ms": max(tb, to),
+                          "bound_by": "bytes" if tb >= to
+                          else "operations"}))
         out.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=counts[name], launches_per_frame=counts[name]
@@ -226,8 +335,7 @@ def check_kernels(calls, counts, frames_per_run):
           cuda_ms(lambda: intra.intra_pred(*a)),
           cuda_ms(lambda: intra.intra_pred_plain(above, left, ha, hl, n,
                                                  full)),
-          above.numel() * 8 + ha.numel() * 2 + got.numel() * 4,
-          got.numel() * 10)
+          WORK["intra_pred"](a, {}))
 
     # K2 fwd_txq, integer variant (the wavefront's races)
     _, a, k = calls["fwd_txq"]
@@ -266,8 +374,7 @@ def check_kernels(calls, counts, frames_per_run):
           cuda_ms(lambda: tt.fwd_txq(*a, **k)),
           cuda_ms(lambda: tt.fwd_txq_plain(resid, Fv, FhT, ti, qd, qa,
                                            shift)),
-          resid.numel() * 4 + Fv.numel() * 8 + nb * (m * m * 8 + 12),
-          nb * 2 * m * n * (n + m),
+          WORK["fwd_txq"](a, k),
           library_ms=cuda_ms(lambda: torch.matmul(
               Fv0, torch.matmul(xf, FhT0))))
 
@@ -301,11 +408,10 @@ def check_kernels(calls, counts, frames_per_run):
     err = int((got - ref).abs().max())
     if err:
         raise RuntimeError(f"inv_txfm differs from its plain version: {err}")
-    n = coeffs.shape[-1]
     entry("inv_txfm", "rav1e_tpu_torch/csrc/inv_txfm.cu",
           "rav1e_tpu/ops/transforms_jax.py:432", err,
           cuda_ms(lambda: tt.inv_txfm(*a, **k)), cuda_ms(plain),
-          coeffs.numel() * 8, coeffs.numel() * 4 * n.bit_length())
+          WORK["inv_txfm"](a, k))
 
     # K4 deblock (one direction of one plane; the largest is luma)
     _, a, k = calls["deblock"]
@@ -323,8 +429,110 @@ def check_kernels(calls, counts, frames_per_run):
           cuda_ms(lambda: deblock.deblock_pass(*a, **k)),
           cuda_ms(lambda: deblock.deblock_pass_plain(
               img, lim, blim, thr, 8, pidx, tx, bp, sk, s_al, s_ac), reps=5),
-          img.numel() * 8 + tx.numel() * 9, img.numel() * 100 / 4)
+          WORK["deblock"](a, k))
+    check_filter_kernels(calls, entry)
     return out
+
+
+def _same(got, ref, name) -> int:
+    """max |got - ref| over tensors (or tuples of them); raises unless 0."""
+    import torch
+
+    pairs = zip(got, ref) if isinstance(got, tuple) else [(got, ref)]
+    err = max(int((g.to(torch.int64) - r.to(torch.int64)).abs().max())
+              for g, r in pairs)
+    if err:
+        raise RuntimeError(f"{name} differs from its plain version: {err}")
+    return err
+
+
+def wiener_ties(ds, ss, taps, ref):
+    """Where K7's taps differ from the plain version's: each must be 1
+    apart at a coefficient whose exact (float64, from exact sums) value
+    * 128 lies within WIENER_TIE of a .5 rounding tie."""
+    import numpy as np
+
+    from rav1e_tpu_torch.ops import lrf
+
+    diff = (taps != ref).cpu().numpy()
+    if not diff.any():
+        return 0
+    if int((taps - ref).abs().max()) > 1:
+        raise RuntimeError("wiener_solve taps differ by more than 1")
+    sums = np.concatenate([lrf._normal_sums(d, s).cpu().numpy()
+                           for d, s in zip(ds, ss)]).astype(np.float64)
+    for i, k in zip(*np.nonzero(diff)):
+        m = sums[i]
+        M = np.array([[m[0], m[1], m[2]], [m[1], m[3], m[4]],
+                      [m[2], m[4], m[5]]])
+        M += ((M[0, 0] + M[1, 1] + M[2, 2]) * 1e-6 + 1e-3) * np.eye(3)
+        c = np.linalg.solve(M, m[6:])[k] * 128
+        if abs(abs(c - np.floor(c)) - 0.5) > WIENER_TIE:
+            raise RuntimeError(f"wiener_solve tap ({i}, {k}) differs away "
+                               f"from a tie: {c}")
+    return int(diff.sum())
+
+
+def check_filter_kernels(calls, entry):
+    """K5-K8 (cdef_dir, cdef_filter, wiener_solve, wiener_lr) on the main
+    path's largest calls: parity with the plain versions, times, bounds.
+    Integer operation counts a sample (for the bound): K5 ~14 (bins and
+    weighted squares), K6 ~150 a sample and candidate (12 taps of
+    constrain, min/max, the rounding), K7 ~30 a sample and direction, K8
+    ~70 (14 multiply-adds of the two passes, the stripe rule, the SSE)."""
+    from rav1e_tpu_torch.ops import cdef, lrf
+
+    # K5 cdef_dir on the deblocked luma
+    _, a, _k = calls["cdef_dir"]
+    err = _same(cdef.cdef_dir(*a), cdef.cdef_dir_plain(*a), "cdef_dir")
+    entry("cdef_dir", "rav1e_tpu_torch/csrc/cdef_dir.cu",
+          "rav1e_tpu/ops/cdef_jax.py:43", err,
+          cuda_ms(lambda: cdef.cdef_dir(*a)),
+          cuda_ms(lambda: cdef.cdef_dir_plain(*a), reps=5),
+          WORK["cdef_dir"](a, {}))
+
+    # K6 cdef_filter: the search (8 luma + 3 chroma candidates' superblock
+    # SSE) and the apply of the chosen pairs, the frame's two launches
+    _, s_a, _k = calls["cdef_filter_search"]
+    _, p_a, _k = calls["cdef_filter_apply"]
+    err = max(_same(cdef.cdef_filter(*s_a), cdef.cdef_filter_plain(*s_a),
+                    "cdef_filter (search)"),
+              _same(cdef.cdef_filter(*p_a), cdef.cdef_filter_plain(*p_a),
+                    "cdef_filter (apply)"))
+    ws, wa = WORK["cdef_filter"](s_a, {}), WORK["cdef_filter"](p_a, {})
+    entry("cdef_filter", "rav1e_tpu_torch/csrc/cdef_filter.cu",
+          "rav1e_tpu/ops/cdef_jax.py:84", err,
+          cuda_ms(lambda: cdef.cdef_filter(*s_a))
+          + cuda_ms(lambda: cdef.cdef_filter(*p_a)),
+          cuda_ms(lambda: cdef.cdef_filter_plain(*s_a), reps=3)
+          + cuda_ms(lambda: cdef.cdef_filter_plain(*p_a), reps=3),
+          (ws[0] + wa[0], ws[1] + wa[1]))
+
+    # K7 wiener_solve over the three planes
+    _, a, _k = calls["wiener_solve"]
+    ds, ss = a
+    taps, en = lrf.wiener_solve(ds, ss)
+    rt, re = lrf.wiener_solve_plain(ds, ss)
+    ties = wiener_ties(ds, ss, taps, rt)
+    if not bool((en == re).all()) and not ties:
+        raise RuntimeError("wiener_solve en differs from its plain version")
+    print(json.dumps({"wiener_solve_ties": ties}))
+    entry("wiener_solve", "rav1e_tpu_torch/csrc/wiener_solve.cu",
+          "rav1e_tpu/ops/filter_chain_jax.py:25",
+          int((taps - rt).abs().max()),
+          cuda_ms(lambda: lrf.wiener_solve(ds, ss)),
+          cuda_ms(lambda: lrf.wiener_solve_plain(ds, ss), reps=5),
+          WORK["wiener_solve"](a, {}))
+
+    # K8 wiener_lr on the luma plane
+    _, a, _k = calls["wiener_lr"]
+    err = _same(lrf.wiener_lr(*a), lrf.wiener_lr_plain(*a), "wiener_lr")
+    entry("wiener_lr", "rav1e_tpu_torch/csrc/wiener_lr.cu",
+          "rav1e_tpu/ops/lrf_jax.py:77", err,
+          cuda_ms(lambda: lrf.wiener_lr(*a)),
+          cuda_ms(lambda: lrf.wiener_lr_plain(*a), reps=5),
+          WORK["wiener_lr"](a, {}))
+
 
 
 def breakdown(frames, profiled: bool) -> dict:
@@ -341,7 +549,7 @@ def breakdown(frames, profiled: bool) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from rav1e_tpu_torch.models import device_pipeline, wavefront
-    from rav1e_tpu_torch.ops import filter_chain
+    from rav1e_tpu_torch.ops import cdef, filter_chain
 
     secs = Counter()
     undo = []
@@ -362,7 +570,9 @@ def breakdown(frames, profiled: bool) -> dict:
     timed(wavefront, "launch_wavefront_batch", "wavefront_pass")
     timed(wavefront, "launch_wavefront", "wavefront_pass")
     timed(device_pipeline, "launch_band_rd_maps", "band_maps")
-    timed(filter_chain, "launch_filter_chain", "deblock_chain")
+    timed(filter_chain, "launch_filter_chain", "filter_chain")
+    timed(cdef, "search_apply", "cdef")  # inside the chain
+    timed(filter_chain, "_restore", "lr")  # inside the chain
     prof = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
             if profiled else contextlib.nullcontext())
     try:
@@ -374,6 +584,8 @@ def breakdown(frames, profiled: bool) -> dict:
     finally:
         for mod, name, orig in undo:
             setattr(mod, name, orig)
+    secs["deblock_and_uploads"] = (secs["filter_chain"] - secs["cdef"]
+                                   - secs["lr"])
     out = {"frames": len(frames), "wall_s": wall, "stages_s": dict(secs),
            "encoder_stages_s": encode.stages}
     if not profiled:
@@ -396,9 +608,10 @@ def breakdown(frames, profiled: bool) -> dict:
     return out
 
 
-def check_output(data, recon, fes):
-    """decode == recon where libdav1d loads; SB re-derivation and the
-    deblock check always.  Returns a summary dict."""
+def check_output(data, recon, fes, filter_frames: int):
+    """decode == recon where libdav1d loads; SB re-derivation always, and
+    the numpy filter chain (deblock_np, cdef_np, lrf_np) over the first
+    filter_frames frames.  Returns a summary dict."""
     import numpy as np
 
     from rav1e_tpu_torch.utils import recon_check
@@ -439,11 +652,17 @@ def check_output(data, recon, fes):
                                            fe.dc_q, fe.ac_q):
                 raise RuntimeError(f"SB ({sr}, {sc}) does not re-derive")
             checked += 1
-        if not recon_check.deblock_matches(fe, pre, r):
-            raise RuntimeError("deblock_np over the pre-filter frame "
-                               "differs from the output recon")
+    for f in range(filter_frames):
+        fe = fes[f]
+        if not recon_check.filters_match(fe, fe._chk_prefilter, recon[f]):
+            raise RuntimeError(f"frame {f}: the numpy filter chain over the "
+                               "pre-filter frame differs from the output")
     summary["sbs_rederived"] = checked
-    summary["deblock_np_frames"] = len(fes)
+    summary["filter_chain_np_frames"] = filter_frames
+    summary["cdef_per_sb"] = sum(fe.cdef_sb is not None for fe in fes)
+    summary["lr_units_wiener"] = sum(
+        sum(v is not None for v in getattr(fe, "_lr_params", {}).values())
+        for fe in fes)
     return summary
 
 
@@ -509,21 +728,41 @@ def main() -> int:
         raise RuntimeError(f"{len(fes)} of {NFRAMES} frames took the "
                            "wavefront")
 
+    print(json.dumps({"bound_ms_per_frame": {
+        k: v / NFRAMES for k, v in cap.bounds.items()}, "card": card}))
     results = check_kernels(cap.calls, counts, NFRAMES)
-    summary = check_output(data, recon, fes)
-    print(json.dumps({"output": summary, "bytes": sum(map(len, data))}))
-
     t3 = time.perf_counter()
+    summary = check_output(data, recon, fes, FILTER_FRAMES)
+    print(json.dumps({"output": summary, "bytes": sum(map(len, data)),
+                      "check_s": time.perf_counter() - t3}))
+
+    # the keyframe path with CDEF and loop restoration off
+    kernels.reset_counts()
+    off_data, off_recon, off_fes = encode(frames[:OFF_FRAMES], check=True,
+                                          filters=False)
+    torch.cuda.synchronize()
+    off_counts = dict(kernels.COUNTS)
+    missing = [k for k in kernels.KERNELS[:4] if off_counts[k] == 0]
+    if missing:
+        raise RuntimeError(f"kernels not launched on the cdef/lrf-off path: "
+                           f"{missing}")
+    off_summary = check_output(off_data, off_recon, off_fes, OFF_FRAMES)
+    print(json.dumps({"off_path": {"launches": off_counts,
+                                   "output": off_summary,
+                                   "bytes": sum(map(len, off_data))}}))
+
+    t4 = time.perf_counter()
     data2, _, _ = encode(frames, check=False)
     torch.cuda.synchronize()
-    t_enc = time.perf_counter() - t3
+    t_enc = time.perf_counter() - t4
     if data2 != data:
         raise RuntimeError("the second encode wrote other bytes")
     print(json.dumps({"encode": {"frames": NFRAMES, "size": f"{W}x{H}",
                                  "seconds": t_enc, "fps": NFRAMES / t_enc,
                                  "stages_s": encode.stages, "card": card}}))
     print(json.dumps({"breakdown": breakdown(frames[:4],
-                                             "--profile" in sys.argv)}))
+                                             "--profile" in sys.argv),
+                      "card": card}))
     print(json.dumps({"parity": {r["name"]: r["max_abs_err"]
                                  for r in results}}))
     if any(m == "jax" or m.startswith("jax.") or m == "rav1e_tpu"

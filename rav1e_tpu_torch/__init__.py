@@ -6,22 +6,25 @@ keeps its own copies of the host modules it needs.
 
 - device compute: PyTorch glue over hand-written CUDA kernels for Hopper
   (csrc/: intra prediction, forward transform + quantiser, inverse
-  transform, deblock), each with a plain PyTorch version that runs when
-  the tensors lie on the CPU;
+  transform, deblock, CDEF directions and filter, Wiener tap solve and
+  filter), each with a plain PyTorch version that runs when the tensors
+  lie on the CPU;
 - host native path: the C++ MSAC entropy coder + block coder
   (native/*.cc, built by ec/native.py into the port's build directory);
 - orchestration: Config / Context / FrameEncoder as in the JAX package.
 
-Ported so far: key frames with CDEF and loop restoration off
-(SpeedSettings.cdef=False, lrf=False).  Inter frames, CDEF, loop
-restoration and multi-GPU sharding raise NotImplementedError.
+Ported so far: key frames at the speed-6 defaults (CDEF search and apply,
+fused Wiener loop restoration) and with either filter off.  Inter frames,
+the speed <= 5 filter searches (SGR, the deblock level search) and
+multi-GPU sharding raise NotImplementedError.
 
 Layout:
   api/      Config / Context / EncoderStatus public API
   obu/      OBU headers, bit writers, IVF muxing (host)
   ec/       MSAC range coder (C++ + python reference impl)
   entropy/  CDF tables, symbol contexts, coefficient tokenization
-  ops/      intra, transforms, deblock and the filter chain (device)
+  ops/      intra, transforms, deblock, cdef, lrf and the filter chain
+            (device)
   models/   encode pipelines (wavefront pass, band maps, frame encoders)
   utils/    frames, stats, the libdav1d conformance oracle
   csrc/     CUDA sources of the kernels

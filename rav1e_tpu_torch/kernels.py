@@ -24,7 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("intra_pred", "fwd_txq", "inv_txfm", "deblock")
+KERNELS = ("intra_pred", "fwd_txq", "inv_txfm", "deblock", "cdef_dir",
+           "cdef_filter", "wiener_solve", "wiener_lr")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -43,9 +44,19 @@ ARGTYPES = {
     "inv_txfm": [_vp, _vp, _ci, _ci, _ci, _vp, _ci, _ci, _ci, _ci, _vp],
     "deblock_pass": [_vp, _vp, _ci, _ci, _ci, _ci, _vp, _vp, _vp, _ci, _ci,
                      _ci, _ci, _ci, _ci, _ci, _ci, _vp],
+    "cdef_dir": [_vp, _ci, _ci, _ci, _ci, _vp, _vp, _vp],
+    "cdef_filter": [_vp, _vp, _vp, _ci, _ci, _vp, _vp, _vp, _ci, _ci, _ci,
+                    _ci, _vp, _vp, _vp, _ci, _ci, _ci, _vp, _vp, _vp, _vp,
+                    _vp, _vp],
+    "wiener_solve": [_vp, _vp, _ci, _ci, _ci, _ci] * 3 + [_ci, _vp, _vp, _vp,
+                                                          _vp],
+    "wiener_lr": [_vp, _ci, _vp, _ci, _vp, _ci, _ci, _ci, _ci, _vp, _vp, _cf,
+                  _cf, _vp, _vp, _vp],
 }
 _ENTRY = {"intra_pred": "intra_pred", "fwd_txq": "fwd_txq",
-          "inv_txfm": "inv_txfm", "deblock": "deblock_pass"}
+          "inv_txfm": "inv_txfm", "deblock": "deblock_pass",
+          "cdef_dir": "cdef_dir", "cdef_filter": "cdef_filter",
+          "wiener_solve": "wiener_solve", "wiener_lr": "wiener_lr"}
 
 
 def reset_counts() -> None:

@@ -237,10 +237,15 @@ class IntraFrameEncoder:
         returns immediately under JAX async dispatch).  launch=False does
         the host setup only — the caller attaches a (batched) wavefront
         handle to _wf_launched itself (pipeline.prefetch_key_frames)."""
-        if self.lrf or self.cdef_damping:
+        if self.lrf and self.sgr_search:
             raise NotImplementedError(
-                "CDEF and loop restoration: ROADMAP queue 1 item 6 (next "
-                "slice); encode with SpeedSettings.cdef=False, lrf=False")
+                "loop restoration with the SGR search and per-unit Wiener "
+                "taps (speed <= 5): ROADMAP queue 1 item 10")
+        if (self.lrf or self.cdef_damping) and self.lf_search \
+                and any(self.lf_levels):
+            raise NotImplementedError(
+                "CDEF and loop restoration after the host deblock search "
+                "(speed <= 5): ROADMAP queue 1 item 10")
         w, h, bd = self.w, self.h, self.bd
         # pad source planes to coded (mi-aligned) dims by edge replication
         self.src = []
@@ -453,14 +458,24 @@ class IntraFrameEncoder:
         self._dev_db_c = self._dev_cdef_c = None
         if self.cdef_damping:
             raise NotImplementedError(
-                "CDEF (search and apply): ROADMAP queue 1 item 6")
+                "CDEF on the host filter path (search and apply outside the "
+                "device chain): ROADMAP queue 1 item 10")
         return self._finish_lr(data)
 
     def _finish_lr(self, data):
-        """Output crop (shared by the host filter path and the device
-        filter chain).  Loop restoration is not ported yet (see
-        prepare)."""
-        self._fire_prefetch()
+        """Loop restoration + output crop (shared by the host filter path
+        and the device filter chain)."""
+        if self.lrf:
+            with self.stats.stage("lrf"):
+                with self.stats.stage("lr_decide"):
+                    self._lr_decide()
+                self._fire_prefetch()  # after this frame's last device use
+                with self.stats.stage("lr_emit"):
+                    data = self._emit_tiles_lr()
+                with self.stats.stage("lr_apply"):
+                    self._lr_apply()
+        else:
+            self._fire_prefetch()
         ch = (self.out_h + self.sub_y) >> self.sub_y
         cw = (self.out_w + self.sub_x) >> self.sub_x
         recon = [
@@ -980,6 +995,245 @@ class IntraFrameEncoder:
         for i, td in enumerate(tile_datas):
             if i < len(tile_datas) - 1:
                 out += (len(td) - 1).to_bytes(4, "little")  # tile_size_minus_1
+            out += td
+        return out
+
+    # -- loop restoration (reference analog: src/lrf.rs) ----------------------
+
+    LR_UNIT = 64  # luma restoration unit size (lr_unit_shift = 0)
+
+    def _lr_decide(self) -> None:
+        """Per-unit restoration decision (SWITCHABLE luma, RESTORE_WIENER
+        chroma): none vs Wiener with one frame-level tap set per plane,
+        taken from the device filter chain's fused LR stage.
+
+        Wiener units share the frame taps so every unit after the first
+        codes its coefficients equal to the running reference (v == ref
+        subexp path).  The host search (SGRPROJ, per-unit taps; speed <= 5)
+        is not ported."""
+        self._lr_params = {}
+        if not self.sgr_search and self._lr_decide_fused():
+            return
+        raise NotImplementedError(
+            "the host loop-restoration search (SGR, per-unit Wiener taps; "
+            "speed <= 5): ROADMAP queue 1 item 10")
+
+    def _lr_decide_fused(self) -> bool:
+        """Fused device LR decision (speed-6 flow: none-vs-Wiener with
+        frame-level taps, no SGR search), read from the filter chain's
+        fused LR stage (ops/filter_chain.py: taps by K7, trials, unit
+        choice and composition by K8).  A frame whose chain did not run
+        that stage (lossless, or outside the chain's 8-bit 4:2:0
+        envelope) would need the separate decision of the JAX package
+        (lrf_jax.lr_decide_device), which is not ported."""
+        from rav1e_tpu_torch.ops import lrf_np as lr
+
+        self._lr_chroma = {1: {}, 2: {}}
+        self._lr_chroma_taps = {}
+        self.lr_types = [1, 0, 0]
+        chain_lr = getattr(self, "_chain_lr", None)
+        if chain_lr is not None:
+            # taps solved + trials + composition already ran inside the
+            # device filter chain
+            comp, choice, taps, en = chain_lr
+            self._chain_lr = None
+            rows = lr.unit_ranges(self.LR_UNIT, self.out_h, shifted=True)
+            cols = lr.unit_ranges(self.LR_UNIT, self.out_w)
+            vt, ht = tuple(int(t) for t in taps[0]), tuple(
+                int(t) for t in taps[1])
+            for ur, (y0, y1) in enumerate(rows):
+                for uc, (x0, x1) in enumerate(cols):
+                    if en[0] and choice[0][ur, uc]:
+                        self._lr_params[(ur, uc)] = (
+                            "wiener", vt, ht, comp[0][y0:y1, x0:x1])
+                    else:
+                        self._lr_params[(ur, uc)] = None
+            cw = (self.out_w + 1) >> 1
+            ch = (self.out_h + 1) >> 1
+            rows_c = lr.unit_ranges(self.LR_UNIT >> 1, ch, shifted=True)
+            cols_c = lr.unit_ranges(self.LR_UNIT >> 1, cw)
+            for plane in (1, 2):
+                if not (en[plane] and choice[plane].any()):
+                    continue
+                units = {}
+                for ur, (y0, y1) in enumerate(rows_c):
+                    for uc, (x0, x1) in enumerate(cols_c):
+                        units[(ur, uc)] = (comp[plane][y0:y1, x0:x1]
+                                           if choice[plane][ur, uc] else None)
+                self._lr_chroma[plane] = units
+                tr = taps[2 * plane], taps[2 * plane + 1]
+                self._lr_chroma_taps[plane] = (
+                    tuple(int(t) for t in tr[0]),
+                    tuple(int(t) for t in tr[1]))
+                self.lr_types[plane] = 2  # coded RESTORE_WIENER
+            return True
+        raise NotImplementedError(
+            "the loop-restoration decision outside the device filter chain "
+            "(lrf_jax.lr_decide_device): ROADMAP queue 1 item 10")
+
+    def _lr_apply(self) -> None:
+        from rav1e_tpu_torch.ops import lrf_np as lr
+
+        rows = lr.unit_ranges(self.LR_UNIT, self.out_h, shifted=True)
+        cols = lr.unit_ranges(self.LR_UNIT, self.out_w)
+        for (ur, uc), p in self._lr_params.items():
+            if p is None:
+                continue
+            y0, y1 = rows[ur]
+            x0, x1 = cols[uc]
+            self.rec[0][y0:y1, x0:x1] = p[3]
+        unit_c = self.LR_UNIT >> 1
+        cw = (self.out_w + 1) >> 1
+        ch = (self.out_h + 1) >> 1
+        for plane in (1, 2):
+            if getattr(self, "lr_types", [1, 0, 0])[plane] != 2:
+                continue
+            rows_c = lr.unit_ranges(unit_c, ch, shifted=True)
+            cols_c = lr.unit_ranges(unit_c, cw)
+            for (ur, uc), out in self._lr_chroma[plane].items():
+                if out is None:
+                    continue
+                y0, y1 = rows_c[ur]
+                x0, x1 = cols_c[uc]
+                self.rec[plane][y0:y1, x0:x1] = out
+
+    def _lr_write(self, enc, sb_row: int, sb_col: int) -> None:
+        """read_lr for one superblock (spec 5.11.57), luma SWITCHABLE frame
+        restoration type (none / wiener / sgrproj per unit); plane 1/2 are
+        RESTORE_NONE (no symbols)."""
+        from rav1e_tpu_torch.entropy import subexp as se
+        from rav1e_tpu_torch.ops import lrf_np as lr
+        from rav1e_tpu_torch.ops import sgr_np as sg
+
+        unit = self.LR_UNIT
+        n_rows = lr.count_units(unit, self.out_h)
+        n_cols = lr.count_units(unit, self.out_w)
+        r_mi, c_mi = sb_row * 16, sb_col * 16
+        ur0 = (r_mi * 4 + unit - 1) // unit
+        ur1 = min(n_rows, ((r_mi + 16) * 4 + unit - 1) // unit)
+        uc0 = (c_mi * 4 + unit - 1) // unit
+        uc1 = min(n_cols, ((c_mi + 16) * 4 + unit - 1) // unit)
+        for ur in range(ur0, ur1):
+            for uc in range(uc0, uc1):
+                p = self._lr_params.get((ur, uc))
+                kind = p[0] if p is not None else "none"
+                sym = {"none": 0, "wiener": 1, "sgr": 2}[kind]
+                enc.symbol_adapt(sym, self.cdf.switchable_restore[0])
+                if kind == "wiener":
+                    _, vt, ht, _ = p
+                    for pass_i, taps in ((0, vt), (1, ht)):
+                        for i in range(3):
+                            se.write_signed_subexp_with_ref(
+                                enc, int(taps[i]), lr.WIENER_TAPS_MIN[i],
+                                lr.WIENER_TAPS_MAX[i] + 1, lr.WIENER_TAPS_K[i],
+                                int(self._lr_ref[pass_i][i]))
+                            self._lr_ref[pass_i][i] = int(taps[i])
+                elif kind == "sgr":
+                    _, si, xqd, _ = p
+                    enc.literal(si, 4)
+                    r0, r1 = sg.sgr_radii(si)
+                    for i, radius in ((0, r0), (1, r1)):
+                        if radius:
+                            se.write_signed_subexp_with_ref(
+                                enc, int(xqd[i]), sg.XQD_MIN[i],
+                                sg.XQD_MAX[i] + 1, sg.SGRPROJ_PRJ_SUBEXP_K,
+                                int(self._sgr_ref[i]))
+                            self._sgr_ref[i] = int(xqd[i])
+                        else:
+                            # not coded; the decoder derives the value
+                            # (0, or clip(128 - xqd0) for i == 1) and updates
+                            # its reference with it — solve_xqd stores the
+                            # same derived values in xqd
+                            self._sgr_ref[i] = int(xqd[i])
+        # chroma planes (RESTORE_WIENER): per-unit on/off bool + taps
+        # (tap 0 implied zero for chroma; spec read_lr plane-major order)
+        lr_types = getattr(self, "lr_types", [1, 0, 0])
+        unit_c = unit >> 1
+        cw = (self.out_w + 1) >> 1
+        ch = (self.out_h + 1) >> 1
+        for plane in (1, 2):
+            if lr_types[plane] != 2:
+                continue
+            nr_c = lr.count_units(unit_c, ch)
+            nc_c = lr.count_units(unit_c, cw)
+            r_px, c_px = sb_row * 32, sb_col * 32
+            ur0 = (r_px + unit_c - 1) // unit_c
+            ur1 = min(nr_c, (r_px + 32 + unit_c - 1) // unit_c)
+            uc0 = (c_px + unit_c - 1) // unit_c
+            uc1 = min(nc_c, (c_px + 32 + unit_c - 1) // unit_c)
+            for ur in range(ur0, ur1):
+                for uc in range(uc0, uc1):
+                    use = self._lr_chroma[plane].get((ur, uc)) is not None
+                    enc.symbol_adapt(1 if use else 0,
+                                     self.cdf.wiener_restore[0])
+                    if not use:
+                        continue
+                    vt, ht = self._lr_chroma_taps[plane]
+                    for pass_i, taps in ((0, vt), (1, ht)):
+                        for i in (1, 2):
+                            se.write_signed_subexp_with_ref(
+                                enc, int(taps[i]), lr.WIENER_TAPS_MIN[i],
+                                lr.WIENER_TAPS_MAX[i] + 1,
+                                lr.WIENER_TAPS_K[i],
+                                int(self._lr_ref_c[plane][pass_i][i]))
+                            self._lr_ref_c[plane][pass_i][i] = int(taps[i])
+
+    def _emit_tiles_lr(self) -> bytes:
+        """Replay recorded tiles with read_lr symbols at SB anchors.  The
+        recorded ops hold row views into _frame_init_cdf's arrays, so tile
+        independence is achieved by restoring those arrays IN PLACE before
+        each tile's replay (preserving object identity)."""
+        if getattr(self, "_lrf_native", False):
+            filtered = [p.copy() for p in self.rec]
+            self.rec = self._prefilter_rec
+            self.cdf = self._frame_init_cdf
+            self._nbc.cache_rewind()
+            self._lr_replay = True
+            try:
+                tile_datas = self._run_tiles_native(lr_emit=True)
+            finally:
+                self._lr_replay = False
+            self.rec = filtered  # cached replay skips recon; restore filtered
+            if len(tile_datas) == 1:
+                return tile_datas[0]
+            out = b""
+            for i, td in enumerate(tile_datas):
+                if i < len(tile_datas) - 1:
+                    out += (len(td) - 1).to_bytes(4, "little")
+                out += td
+            return out
+        frame_cdf = self._frame_init_cdf
+        tile_datas = []
+        multi = len(self._tile_recorders) > 1
+        pristine = frame_cdf.copy() if multi else None
+        saved = None
+        for idx, rec in enumerate(self._tile_recorders):
+            if multi and idx > 0:
+                frame_cdf.restore_from(pristine)
+            self.cdf = frame_cdf
+            if self.use_native:
+                from rav1e_tpu_torch.ec.native import NativeMsacEncoder
+
+                enc = NativeMsacEncoder()
+            else:
+                enc = MsacEncoder()
+            self._lr_ref = [list(lr_default) for lr_default in
+                            ((3, -7, 15), (3, -7, 15))]
+            self._lr_ref_c = {p: [[3, -7, 15], [3, -7, 15]] for p in (1, 2)}
+            self._sgr_ref = [-32, 31]
+            rec.replay(enc, self.cdf, lr_insert=self._lr_write,
+                       cdef_insert=self._cdef_write)
+            tile_datas.append(enc.done())
+            if idx == 0:
+                saved = frame_cdf.copy() if multi else frame_cdf
+        self.cdf = saved
+        self.cdf_saved = saved
+        if len(tile_datas) == 1:
+            return tile_datas[0]
+        out = b""
+        for i, td in enumerate(tile_datas):
+            if i < len(tile_datas) - 1:
+                out += (len(td) - 1).to_bytes(4, "little")
             out += td
         return out
 

@@ -1,16 +1,26 @@
-"""In-loop filter chain on the GPU: the resident-recon splice and deblock.
+"""In-loop filter chain on the GPU: the resident-recon splice, deblock, the
+CDEF strength search and apply, and the fused Wiener loop restoration.
 
 Counterpart of rav1e_tpu/ops/filter_chain_jax.py (launch_filter_chain,
-collect_filter_chain and the deblock part of _make_kernel.run).  The
-pre-filter recon of the device superblocks stays on the card from the
-wavefront pass; only the host-coded edge stripes (bottom rows below the
-last full SB row, right columns beyond the last full SB column) and the
-per-mi deblock maps are uploaded.  Each plane is deblocked by the K4
-kernel, vertical edges then horizontal, and copied back into fe.rec.
+collect_filter_chain and _make_kernel.run).  The pre-filter recon of the
+device superblocks stays on the card from the wavefront pass; only the
+host-coded edge stripes (bottom rows below the last full SB row, right
+columns beyond the last full SB column), the per-mi deblock maps and the
+source planes are uploaded.  Then, all on the card and without a host
+sync:
 
-CDEF and loop restoration are the next slices of the port (ROADMAP queue
-1, item 6): a frame that asks for either raises NotImplementedError here
-instead of falling back.
+1. each plane is deblocked by K4, vertical edges then horizontal;
+2. with CDEF damping > 0, ops/cdef.search_apply (K5, K6) picks and applies
+   the strengths, per superblock when loop restoration is on (sb_lam =
+   the frame's lambda: the per-SB cdef_idx is interleaved by the deferred
+   entropy pass) and one pair for the frame otherwise (sb_lam = inf);
+3. with loop restoration on (and neither the SGR search nor lossless),
+   ops/lrf solves the frame's Wiener taps (K7) and restores each plane
+   with its none-vs-Wiener choice per unit (K8).
+
+collect_filter_chain copies the planes back into fe.rec and fills the
+CDEF strengths and the fused LR decision for the host entropy pass.  LR
+with the SGR search (speed <= 5) is outside this chain and raises.
 """
 
 from __future__ import annotations
@@ -18,18 +28,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from rav1e_tpu_torch.ops import cdef
 from rav1e_tpu_torch.ops import deblock as db
+from rav1e_tpu_torch.ops import lrf
 from rav1e_tpu_torch.ops.deblock_np import thresholds
 
 
 def _check_envelope(fe) -> None:
-    if fe.cdef_damping:
+    if fe.lrf and getattr(fe, "sgr_search", False):
         raise NotImplementedError(
-            "CDEF in the device filter chain: ROADMAP queue 1 item 6")
-    if fe.lrf:
-        raise NotImplementedError(
-            "loop restoration in the device filter chain: ROADMAP queue 1 "
-            "item 6")
+            "loop restoration with the SGR search (speed <= 5) in the "
+            "device filter chain: ROADMAP queue 1 item 10")
 
 
 def _splice(fe, dev_rec, device):
@@ -58,14 +67,44 @@ def _splice(fe, dev_rec, device):
     return planes
 
 
+def _lr_fuse(fe):
+    """(out_w, out_h) when the fused LR stage runs (filter_chain_jax.py
+    :359-363), else None."""
+    if fe.lrf and not getattr(fe, "sgr_search", False) and fe.q > 0:
+        return fe.out_w, fe.out_h
+    return None
+
+
+def _restore(planes, dbs, srcs, fe, out_w: int, out_h: int):
+    """The fused LR stage: taps (K7), then each plane's restoration, unit
+    choice and composition (K8).  Returns (composed planes, choices,
+    taps (6, 3), en (3,)) on the device."""
+    cwo, cho = (out_w + 1) >> 1, (out_h + 1) >> 1
+    dims = ((out_h, out_w, 64, lrf.LR_RATE_Y), (cho, cwo, 32, lrf.LR_RATE_C),
+            (cho, cwo, 32, lrf.LR_RATE_C))
+    taps, en = lrf.wiener_solve(
+        [p[:hh, :ww] for p, (hh, ww, _u, _r) in zip(planes, dims)],
+        [s[:hh, :ww] for s, (hh, ww, _u, _r) in zip(srcs, dims)])
+    comp, choice = [], []
+    for p, (hh, ww, unit, rate) in enumerate(dims):
+        c, t = lrf.wiener_lr(planes[p], dbs[p], srcs[p],
+                             taps[2 * p : 2 * p + 2], en[p : p + 1],
+                             float(np.float32(fe.lam)), rate, unit, hh, ww)
+        comp.append(c)
+        choice.append(t)
+    return comp, choice, taps, en
+
+
 def launch_filter_chain(fe):
-    """Enqueue the deblock of an IntraFrameEncoder's recon on its device.
-    Returns a handle for collect_filter_chain, or None when the frame is
-    outside the device chain's envelope (8-bit 4:2:0)."""
+    """Enqueue the in-loop filters of an IntraFrameEncoder's recon on its
+    device.  Returns a handle for collect_filter_chain, or None when the
+    frame is outside the device chain's envelope (8-bit 4:2:0)."""
     if fe.bd != 8 or not fe._is420:
         return None
     _check_envelope(fe)
     device = fe.device
+    h, w = fe.coded_h, fe.coded_w
+    ch, cw = h >> 1, w >> 1
     dev_rec = getattr(fe, "_wf_dev_out", None)
     planes = _splice(fe, dev_rec, device)
     info = fe.db_info
@@ -77,21 +116,50 @@ def launch_filter_chain(fe):
         lv = fe.lf_levels[slot]
         lims.append(tuple(int(v) for v in thresholds(lv, fe.lf_sharpness,
                                                      fe.bd)) + (lv != 0,))
-    out = []
+    dbs = []
     for p, (slot_v, slot_h) in enumerate(((0, 1), (2, 2), (3, 3))):
         s = 0 if p == 0 else 1
-        out.append(db.deblock_plane(planes[p], *maps, skip, p, s, s,
-                                    lims[slot_v], lims[slot_h], fe.bd))
-    return out
+        dbs.append(db.deblock_plane(planes[p], *maps, skip, p, s, s,
+                                    lims[slot_v], lims[slot_h],
+                                    fe.bd).contiguous())
+    lr_fuse = _lr_fuse(fe)
+    if not fe.cdef_damping and lr_fuse is None:
+        return {"planes": dbs, "cdef": None, "lr": None}
+    srcs = [torch.as_tensor(np.ascontiguousarray(fe.src[p][:hh, :ww],
+                                                 np.int32), device=device)
+            for p, (hh, ww) in enumerate(((h, w), (ch, cw), (ch, cw)))]
+    out, sel = dbs, None
+    if fe.cdef_damping:
+        # per-SB strengths need the deferred entropy pass (pass B) to
+        # interleave cdef_idx literals; only the LR two-pass flow has it
+        sb_lam = np.float32(fe.lam if fe.lrf else np.inf)
+        use_sb, frame_best, idx_map, *out = cdef.search_apply(
+            *dbs, *srcs, skip, float(sb_lam), fe.cdef_damping, fe.bd)
+        sel = (use_sb, frame_best, idx_map)
+    lr = _restore(out, dbs, srcs, fe, *lr_fuse) if lr_fuse else None
+    return {"planes": out, "cdef": sel, "lr": lr}
 
 
 def collect_filter_chain(fe, handle) -> bool:
-    """Copy the deblocked planes back into fe.rec; no CDEF or LR state is
-    produced (both are off in this chain)."""
+    """Wait on a launch_filter_chain handle: copy the filtered planes back
+    into fe.rec and fill the CDEF strengths (fe.cdef_strengths,
+    fe.cdef_sb) and the fused LR decision (fe._chain_lr = (composed
+    planes, choices, taps, en)).  The planes stay on the card only for
+    the chain, so the device references the JAX package's host LR paths
+    read are None here."""
     h, w = fe.coded_h, fe.coded_w
     ch, cw = h >> 1, w >> 1
     with fe.stats.stage("chain_wait"):
-        y, u, v = (p.cpu().numpy() for p in handle)
+        y, u, v = (p.cpu().numpy() for p in handle["planes"])
+        sel = handle["cdef"]
+        if sel is not None:
+            use_sb, frame_best, idx_map = (t.cpu().numpy() for t in sel)
+        lr = handle["lr"]
+        if lr is not None:
+            comp, choice, taps, en = lr
+            comp = [c.cpu().numpy() for c in comp]
+            choice = {p: c.cpu().numpy() for p, c in enumerate(choice)}
+            taps, en = taps.cpu().numpy(), en.cpu().numpy() != 0
     fe.rec[0][:h, :w] = y
     fe.rec[1][:ch, :cw] = u
     fe.rec[2][:ch, :cw] = v
@@ -99,7 +167,13 @@ def collect_filter_chain(fe, handle) -> bool:
     fe._dev_db_c = fe._dev_cdef_c = None
     fe._chain_restored = None
     fe._chain_taps = None
-    fe._chain_lr = None
-    fe.cdef_strengths = None
-    fe.cdef_sb = None
+    if fe.lrf:
+        fe._deblock_copy = None
+    if sel is not None:
+        fe.cdef_strengths, fe.cdef_sb = cdef._sb_result(
+            bool(use_sb), int(frame_best), idx_map.astype(np.int32))
+    else:
+        fe.cdef_strengths = None
+        fe.cdef_sb = None
+    fe._chain_lr = (comp, choice, taps, en) if lr is not None else None
     return True

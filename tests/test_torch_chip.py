@@ -3,7 +3,8 @@
 These tests need an NVIDIA GPU and nvcc: each builds its kernel from
 rav1e_tpu_torch/csrc, launches it on CUDA tensors and holds the result
 against the plain version on the same inputs (identical for intra_pred,
-inv_txfm and deblock; fwd_txq within its rounding-tie share).  Without a
+inv_txfm, deblock, cdef_dir, cdef_filter, wiener_solve and wiener_lr;
+fwd_txq within its rounding-tie share).  Without a
 card they skip.  On a machine without JAX (the tests' conftest imports
 it) run them as
 
@@ -141,12 +142,105 @@ def test_deblock_kernel(plane_idx):
         assert not torch.equal(got, img_d)
 
 
+def _content(rng, h, w):
+    """A source plane and a blurred, noisy recon of it (int32)."""
+    lo = rng.integers(30, 226, (h // 16 + 2, w // 16 + 2))
+    src = np.kron(lo, np.ones((16, 16)))[:h, :w]
+    src = src + 40 * (np.add.outer(np.arange(h), 2 * np.arange(w)) % 37 < 6)
+    src = np.clip(src + rng.normal(0, 5, (h, w)), 0, 255)
+    k = np.array([1, 4, 6, 4, 1]) / 16.0
+    pad = np.pad(src, 2, mode="edge")
+    rec = sum(k[i] * pad[i : i + h, 2 : 2 + w] for i in range(5))
+    pad = np.pad(rec, 2, mode="edge")
+    rec = sum(k[i] * pad[2 : 2 + h, i : i + w] for i in range(5))
+    rec = np.clip(np.rint(rec + rng.normal(0, 2, (h, w))), 0, 255)
+    return src.astype(np.int32), rec.astype(np.int32)
+
+
+def test_cdef_dir_kernel():
+    from rav1e_tpu_torch.ops import cdef
+
+    dev = _card()
+    rng = np.random.default_rng(SEED)
+    plane = rng.integers(0, 256, (1080, 1920)).astype(np.int32)
+    i, j = np.mgrid[0:8, 0:8]
+    for n, pat in enumerate([(i + j) % 2, i % 2, j % 2, (i - j) % 4 < 2]):
+        plane[8 * n : 8 * n + 8, :8] = 255 * pat  # maximum contrast
+    x = torch.as_tensor(plane, device=dev)
+    d, v = cdef.cdef_dir(x)
+    dp, vp = cdef.cdef_dir_plain(x)
+    assert torch.equal(d, dp) and torch.equal(v, vp)
+
+
+@pytest.mark.parametrize("h,w", [(1080, 1920), (272, 200)])
+def test_cdef_filter_kernel(h, w):
+    """Search (every candidate's superblock SSE) and apply (random
+    candidate pairs per superblock), partial superblocks included."""
+    from rav1e_tpu_torch.ops import cdef
+
+    dev = _card()
+    rng = np.random.default_rng(SEED + h)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    planes = [_content(rng, h, w), _content(rng, h // 2, w // 2),
+              _content(rng, h // 2, w // 2)]
+    src = [t(s) for s, _ in planes]
+    rec = [t(r) for _, r in planes]
+    dirs, var = cdef.cdef_dir(rec[0])
+    act = t(rng.random((h // 8, w // 8)) < 0.8)
+    args = (*rec, *src, dirs, var, act, 4)
+    sse = cdef.cdef_filter(*args, cdef.SEARCH)
+    assert torch.equal(sse, cdef.cdef_filter_plain(*args, cdef.SEARCH))
+    idx = t(rng.integers(0, 8, (-(-h // 64), -(-w // 64))).astype(np.int32))
+    got = cdef.cdef_filter(*args, cdef.APPLY, idx)
+    ref = cdef.cdef_filter_plain(*args, cdef.APPLY, idx)
+    for g, r, p in zip(got, ref, rec):
+        assert torch.equal(g, r)
+        assert not torch.equal(g, p)
+
+
+def test_wiener_solve_kernel():
+    from rav1e_tpu_torch.ops import lrf
+
+    dev = _card()
+    rng = np.random.default_rng(SEED + 7)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    planes = [_content(rng, 1080, 1920), _content(rng, 544, 960),
+              _content(rng, 544, 960)]
+    ds = [t(r)[: 1080 >> (p > 0), :] for p, (_s, r) in enumerate(planes)]
+    ss = [t(s)[: 1080 >> (p > 0), :] for p, (s, _r) in enumerate(planes)]
+    taps, en = lrf.wiener_solve(ds, ss)
+    rt, re = lrf.wiener_solve_plain(ds, ss)
+    assert torch.equal(taps, rt) and torch.equal(en, re)
+    assert en.all()
+
+
+@pytest.mark.parametrize("unit,hh,ww", [(64, 1080, 1920), (32, 540, 960),
+                                        (64, 134, 230), (32, 67, 115)])
+def test_wiener_lr_kernel(unit, hh, ww):
+    from rav1e_tpu_torch.ops import lrf
+
+    dev = _card()
+    rng = np.random.default_rng(SEED + hh)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    src, cd = _content(rng, (hh + 7) & ~7, (ww + 7) & ~7)
+    db = np.clip(cd + rng.integers(-3, 4, cd.shape), 0, 255)
+    taps, en = lrf.wiener_solve_plain([t(cd)[:hh, :ww]] * 3,
+                                      [t(src)[:hh, :ww]] * 3)
+    tp = taps[0:2] if unit == 64 else taps[2:4]
+    args = (t(cd), t(db.astype(np.int32)), t(src), tp, en[:1], 300.0,
+            lrf.LR_RATE_Y, unit, hh, ww)
+    comp, choice = lrf.wiener_lr(*args)
+    rc, rch = lrf.wiener_lr_plain(*args)
+    assert torch.equal(comp, rc) and torch.equal(choice, rch)
+
+
 def test_keyframes_on_card_conform(monkeypatch):
-    """Two 320x240 key frames through Config -> Context on the card: every
-    kernel launches, and the output conforms as chip_smoke.py checks it
-    (libdav1d decode == recon where it loads; sampled superblocks
-    re-derived with the numpy oracles and the deblocked frame held against
-    deblock_np in every case)."""
+    """Two 320x240 key frames through Config -> Context on the card in
+    bench.py's configuration (CDEF and LR on): every kernel launches, and
+    the output conforms as chip_smoke.py checks it (libdav1d decode ==
+    recon where it loads; sampled superblocks re-derived with the numpy
+    oracles and the filtered frame held against deblock_np, cdef_np and
+    lrf_np in every case)."""
     import chip_smoke
     from rav1e_tpu_torch import kernels
     from rav1e_tpu_torch.utils.content import make_frames
@@ -157,6 +251,6 @@ def test_keyframes_on_card_conform(monkeypatch):
     kernels.reset_counts()
     data, recon, fes = chip_smoke.encode(make_frames(320, 240, 2), check=True)
     assert all(v > 0 for v in kernels.COUNTS.values()), kernels.COUNTS
-    summary = chip_smoke.check_output(data, recon, fes)
+    summary = chip_smoke.check_output(data, recon, fes, 2)
     assert summary["sbs_rederived"] > 0
-    assert summary["deblock_np_frames"] == 2
+    assert summary["filter_chain_np_frames"] == 2

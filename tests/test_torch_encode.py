@@ -1,10 +1,12 @@
-"""The port's keyframe slice against the JAX package, on the CPU.
+"""The port's keyframe slices against the JAX package, on the CPU.
 
-The slice is bench.py's keyframe workload with CDEF and loop restoration
-off: every frame a key frame, low latency, speed 6, quantizer 100.  At
-320x240 (= 3*64 + 48 rows) it takes the same path as 1080p: the wavefront
-pass over the full superblocks, the band RD maps for the partial bottom
-row, the host block coder and the deblock-only filter chain.
+The workload is bench.py's keyframe workload: every frame a key frame,
+low latency, speed 6, quantizer 100, at its defaults (CDEF and loop
+restoration on) and with both filters off.  At 320x240 (= 3*64 + 48 rows)
+it takes the same path as 1080p: the wavefront pass over the full
+superblocks, the band RD maps for the partial bottom row, the host block
+coder and the filter chain (deblock, then CDEF search and apply and the
+fused Wiener LR at the defaults).
 
 The JAX package runs once, in a module fixture (its pass compiles for
 most of a minute on the CPU).  The port's forward transform may round a
@@ -18,6 +20,14 @@ order), which changes a decision and so the records from there on.  So:
   1 in any coefficient, keeps at least SB_SHARE of the superblock
   records identical, and its stream decodes with libdav1d to exactly the
   port's own recon.
+
+At the defaults the Wiener taps are another such seam: the JAX chain
+solves them in f32, the port from exact sums in float64, so a tap may
+round the other way at a .5 tie.  With the JAX fdct and the JAX tap solve
+substituted the stream is byte-identical; with its own, it decodes to the
+port's recon.  The JAX default run is a second module fixture: its
+wavefront pass is the one the first fixture compiled (the pass cache is
+per process), only its filter chain compiles anew.
 """
 
 import os
@@ -45,11 +55,12 @@ SB_SHARE = 0.5
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _encode(pkg: str, capture: list | None = None, **cfg_kw):
-    """Encode NF keyframes of the bench content in the slice
-    configuration.  Returns (packet bytes, recon planes per frame).  With
-    `capture`, every wavefront launch is recorded as (build_pass args,
-    upload, geometry arrays, outputs) in numpy."""
+def _encode(pkg: str, capture: list | None = None, filters: bool = False,
+            **cfg_kw):
+    """Encode NF keyframes of the bench content, with CDEF and LR off or
+    (filters) at bench.py's defaults.  Returns (packet bytes, recon planes
+    per frame).  With `capture`, every wavefront launch is recorded as
+    (build_pass args, upload, geometry arrays, outputs) in numpy."""
     import importlib
 
     C = importlib.import_module(pkg + ".api.config")
@@ -57,8 +68,9 @@ def _encode(pkg: str, capture: list | None = None, **cfg_kw):
     Fr = importlib.import_module(pkg + ".utils.frame")
     wf = importlib.import_module(pkg + ".models.wavefront")
     ss = C.SpeedSettings.from_preset(6)
-    ss.cdef = False
-    ss.lrf = False
+    if not filters:
+        ss.cdef = False
+        ss.lrf = False
     cfg = C.Config(enc=C.EncoderConfig(
         width=W, height=H, quantizer=100, min_key_frame_interval=1,
         max_key_frame_interval=1, rdo_lookahead_frames=8, low_latency=True,
@@ -228,6 +240,103 @@ def test_stream_decodes_to_recon(port_run, jax_run):
                                   r.astype(np.uint8)), (f, p)
     jbytes = sum(len(d) for d in jax_run[0])
     assert abs(sum(len(d) for d in data) - jbytes) <= 0.01 * jbytes
+
+
+# -- bench.py's defaults: CDEF and loop restoration on --------------------------
+
+
+def _jax_solve(ds, ss):
+    """The JAX chain's tap solve (filter_chain_jax._wiener_solve_dev, with
+    its chroma outer-tap and en rule) in place of K7's plain version."""
+    from rav1e_tpu.ops import filter_chain_jax as jfc
+
+    taps = []
+    for p, (d, s) in enumerate(zip(ds, ss)):
+        v3, h3 = jfc._wiener_solve_dev(jnp, jnp.asarray(d.numpy()),
+                                       jnp.asarray(s.numpy()), *d.shape)
+        t = np.stack([np.asarray(v3), np.asarray(h3)])
+        if p:
+            t[:, 0] = 0
+        taps.append(t)
+    taps = torch.from_numpy(np.concatenate(taps).astype(np.int32))
+    return taps, (taps.reshape(3, 6) != 0).any(1).to(torch.int32)
+
+
+@pytest.fixture(scope="module")
+def jax_default_run():
+    return _encode("rav1e_tpu", filters=True)
+
+
+@pytest.fixture(scope="module")
+def port_default_run():
+    return _encode("rav1e_tpu_torch", filters=True, device="cpu")
+
+
+def test_default_stream_decodes_to_recon(port_default_run, port_run):
+    """At the defaults the port's own stream (its fdct, its tap solve)
+    decodes with libdav1d to exactly its recon, and the filters changed
+    the recon (CDEF and LR ran)."""
+    data, recon = port_default_run
+    dec = dav1d.decode_stream(data)
+    assert len(dec) == NF
+    for f in range(NF):
+        for p in range(3):
+            r = np.asarray(recon[f][p])
+            assert np.array_equal(dec[f][p][: r.shape[0], : r.shape[1]],
+                                  r.astype(np.uint8)), (f, p)
+    off = port_run[1]
+    assert not np.array_equal(np.asarray(recon[0][0]), np.asarray(off[0][0]))
+
+
+def test_default_stream_matches_jax_given_its_fdct_and_solve(
+        jax_default_run, monkeypatch):
+    """With the JAX fdct and the JAX tap solve substituted, the port's
+    stream at the defaults (wavefront, band maps, deblock, CDEF search and
+    apply, fused LR, the two-pass entropy coder with read_lr and cdef_idx)
+    is byte-identical to the JAX package's, and so is its recon."""
+    from rav1e_tpu_torch.ops import lrf as tlr
+
+    monkeypatch.setattr(tt, "fdct_plain", _jax_fdct)
+    monkeypatch.setattr(tlr, "wiener_solve_plain", _jax_solve)
+    data, recon = _encode("rav1e_tpu_torch", filters=True, device="cpu")
+    jdata, jrecon = jax_default_run
+    assert data == jdata
+    for f in range(NF):
+        for p in range(3):
+            assert np.array_equal(np.asarray(recon[f][p]),
+                                  np.asarray(jrecon[f][p])), (f, p)
+
+
+def test_small_default_stream_decodes_to_recon():
+    """A 64x64 frame, below the wavefront's envelope, at the defaults: the
+    host block coder records its symbols, the chain filters the uploaded
+    recon, and the recorded tiles replay with read_lr (_emit_tiles_lr's
+    recorder arm); libdav1d decodes the stream to the recon."""
+    from rav1e_tpu_torch import Config, EncoderConfig, SpeedSettings
+    from rav1e_tpu_torch.api.context import EncoderError
+    from rav1e_tpu_torch.utils.content import make_frames
+
+    ctx = Config(enc=EncoderConfig(
+        width=64, height=64, quantizer=100, min_key_frame_interval=1,
+        max_key_frame_interval=1, low_latency=True,
+        speed_settings=SpeedSettings.from_preset(6)),
+        device="cpu").new_context()
+    frames = make_frames(64, 64, 2)
+    for f in frames:
+        ctx.send_frame(f)
+    ctx.flush()
+    data = []
+    with pytest.raises(EncoderError):
+        while True:
+            data.append(ctx.receive_packet().data)
+    dec = dav1d.decode_stream(data)
+    assert len(dec) == len(frames)
+    for f in range(len(frames)):
+        recon = ctx._encoder.recon_by_input[f]
+        for p in range(3):
+            r = np.asarray(recon[p])
+            assert np.array_equal(dec[f][p][: r.shape[0], : r.shape[1]],
+                                  r.astype(np.uint8)), (f, p)
 
 
 def test_batched_pass_matches_single():

@@ -13,7 +13,8 @@ the JAX package's own tests run it:
   identical wherever the integer coefficients agree, every coefficient
   may differ by at most 1, and at most FDCT_TIE_SHARE of them may differ.
 
-The band RD maps and the deblock-only filter chain are checked whole.
+The band RD maps and the deblock-only filter chain are checked whole
+(CDEF and LR: tests/test_torch_filters.py).
 """
 
 from functools import partial
@@ -406,14 +407,36 @@ def test_filter_chain_matches_jax():
 
 
 def test_filter_chain_refuses_cdef_and_lr():
+    """CDEF and the fused LR run in the device chain now; what stays
+    outside it raises NotImplementedError naming its ROADMAP item: LR with
+    the SGR search (speed <= 5), the LR decision outside the chain
+    (lrf_jax.lr_decide_device's path) and the host CDEF path behind the
+    deblock level search."""
+    from rav1e_tpu_torch.models.intra_frame import IntraFrameEncoder
     from rav1e_tpu_torch.ops import filter_chain as tfc
 
     base = _chain_frame(np.random.default_rng(SEED), 128, 128)
-    for over in (dict(cdef_damping=3), dict(lrf=True)):
-        fe = SimpleNamespace(**{**base, **over}, device="cpu",
-                             _wf_dev_out=None)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tfc.launch_filter_chain(fe)
+    fe = SimpleNamespace(**{**base, "lrf": True, "sgr_search": True},
+                         device="cpu", _wf_dev_out=None)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
+        tfc.launch_filter_chain(fe)
+
+    enc = IntraFrameEncoder(64, 64, q_idx=100, device="cpu")
+    enc.lrf = True
+    enc._chain_lr = None
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
+        enc._lr_decide()
+
+    planes = [np.full((64, 64), 128), np.full((32, 32), 128),
+              np.full((32, 32), 128)]
+    for lrf in (False, True):
+        enc = IntraFrameEncoder(64, 64, q_idx=100, speed=5, cdef_damping=4,
+                                lf_levels=(9, 9, 9, 9), device="cpu")
+        enc.lrf = lrf
+        assert enc.lf_search
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP queue 1 item 10"):
+            enc.prepare(planes)
 
 
 # -- constants ------------------------------------------------------------------
