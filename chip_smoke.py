@@ -14,7 +14,8 @@
 4. Holds each kernel against its plain PyTorch version on the card, on the
    inputs the main path gave it (the largest call of each):
    intra_pred, inv_txfm, deblock, cdef_dir, cdef_filter (search and
-   apply) and wiener_lr must be identical; wiener_solve's taps identical
+   apply) and wiener_lr (also with every unit forced to take Wiener)
+   must be identical; wiener_solve's taps identical
    or 1 apart where the exact coef * 128 lies within 1e-9 of a .5 tie;
    fwd_txq's levels and dequantised values identical except where the
    exact coefficient lies within the fp32 error bound of a .5 rounding
@@ -154,18 +155,75 @@ def _fwd_work(a, k, levels: bool):
             nb * 2 * m * n * (n + m))
 
 
+# Integer operations, counted from the work each function needs.  The
+# card's published table has no integer rate: they are divided by the
+# fp32 rate (PEAK_FP32), the most 32-bit scalar operations the SMs run a
+# second (the integer ALUs run at most as many), so the bound stays a
+# lower bound on the time.
+CDEF_TAP_OPS = 12  # one tap: difference, constrain (abs, shift, subtract,
+#                    two clamps, sign), weight and sum, valid-tap min, max
+CDEF_OUT_OPS = 7   # a filtered sample: rounding of the sum, offset, clip
+SSE_OPS = 3        # subtract, square, accumulate
+WIENER_PASS_OPS = 17  # one 7-tap pass: 7 multiplies, 6 adds, round, clip
+
+
 def _cdef_filter_work(a, k):
-    """Bytes and operations of one K6 launch: search reads six planes and
-    writes 11 sums a superblock, apply reads three planes and writes
-    three; both read the block maps (int32 dirs and var, u8 active); ~150
-    integer operations a sample and candidate (12 taps of constrain,
-    min/max, the rounding)."""
+    """Bytes and operations of one K6 launch.  Bytes: search reads six
+    int32 planes and writes 11 sums a superblock, apply reads three planes
+    and writes three; both read the block maps (int32 dirs and var, u8
+    active).  Operations: the taps each candidate runs on this frame's
+    blocks (4 primary taps where the block is active and its adjusted
+    primary strength nonzero, 8 secondary taps where its secondary
+    strength is nonzero, CDEF_OUT_OPS for a filtered sample), and in the
+    search each sample's SSE for every candidate."""
+    import torch
+
+    from rav1e_tpu_torch.ops import cdef
+
     h, w = a[0].shape
     ny, nc = a[0].numel(), 2 * a[1].numel()
-    nb, nsb = a[6].numel(), -(-h // 64) * -(-w // 64)
-    if a[10] == 0:  # search
-        return (ny + nc) * 8 + nsb * 44 + nb * 9, (ny * 8 + nc * 3) * 150
-    return (ny + nc) * 8 + nsb * 4 + nb * 9, (ny + nc) * 150
+    dirs, var, act = a[6], a[7], a[8].to(torch.bool)
+    nb, nsb = dirs.numel(), -(-h // 64) * -(-w // 64)
+
+    def ops(pri, sec, samples):  # per-block strengths, samples a block
+        pos = lambda t: torch.as_tensor(t, device=act.device) > 0
+        taps = (4 * pos(pri) + 8 * pos(sec)) * act
+        return int(((taps * CDEF_TAP_OPS + (taps > 0) * CDEF_OUT_OPS)
+                    * samples).sum())
+
+    if a[10] == cdef.SEARCH:
+        n = sum(ops(cdef._adjust(p, var), s, 64) for p, s in cdef.Y_CANDIDATES)
+        n += sum(ops(p, 0, 32) for p, _ in cdef.UV_CANDIDATES)
+        n += (ny * len(cdef.Y_CANDIDATES) + nc * len(cdef.UV_CANDIDATES)) \
+            * SSE_OPS
+        return (ny + nc) * 8 + nsb * 44 + nb * 9, n
+    nby, nbx = dirs.shape
+    idx_b = a[11].long().repeat_interleave(8, 0) \
+        .repeat_interleave(8, 1)[:nby, :nbx]
+    ypri, ysec, _, uvpri, _ = cdef._cand_maps(dirs, var, idx_b)
+    return ((ny + nc) * 8 + nsb * 4 + nb * 9,
+            ops(ypri, ysec, 64) + ops(uvpri, 0, 32))
+
+
+def _wiener_lr_work(a, k):
+    """Bytes and operations of one K8 launch: the CDEF output and the
+    source read once, the deblocked plane only in the rows the stripe rule
+    takes from it, the composed plane written once (int32); the horizontal
+    pass over each distinct source row (the plane's and those deblocked
+    rows), the vertical pass, the two SSE and the choice over each
+    sample."""
+    import numpy as np
+
+    from rav1e_tpu_torch.ops import lrf, lrf_np
+
+    unit, hh, ww = a[7], a[8], a[9]
+    ridx, use_db = lrf.stripe_table(hh, unit)
+    db_rows = np.unique(ridx[use_db]).size
+    units = lrf_np.count_units(unit, hh) * lrf_np.count_units(unit, ww)
+    n = hh * ww
+    return (n * 12 + db_rows * ww * 4 + units * 4 + 28,
+            (hh + db_rows) * ww * WIENER_PASS_OPS
+            + n * (WIENER_PASS_OPS + 2 * SSE_OPS + 1))
 
 
 # (bytes, operations) of one call of each kernel from its arguments: each
@@ -189,8 +247,7 @@ WORK = {
     # K7: ~30 a sample and direction
     "wiener_solve": lambda a, k: (sum(d.numel() for d in a[0]) * 8 + 84,
                                   sum(d.numel() for d in a[0]) * 2 * 30),
-    # K8: ~70 a sample (the two 7-tap passes, the stripe rule, the SSE)
-    "wiener_lr": lambda a, k: (a[8] * a[9] * 16, a[8] * a[9] * 70),
+    "wiener_lr": _wiener_lr_work,
 }
 
 
@@ -475,11 +532,10 @@ def wiener_ties(ds, ss, taps, ref):
 
 def check_filter_kernels(calls, entry):
     """K5-K8 (cdef_dir, cdef_filter, wiener_solve, wiener_lr) on the main
-    path's largest calls: parity with the plain versions, times, bounds.
-    Integer operation counts a sample (for the bound): K5 ~14 (bins and
-    weighted squares), K6 ~150 a sample and candidate (12 taps of
-    constrain, min/max, the rounding), K7 ~30 a sample and direction, K8
-    ~70 (14 multiply-adds of the two passes, the stripe rule, the SSE)."""
+    path's largest calls: parity with the plain versions, times, bounds
+    (WORK counts the bytes and operations of each)."""
+    import torch
+
     from rav1e_tpu_torch.ops import cdef, lrf
 
     # K5 cdef_dir on the deblocked luma
@@ -524,9 +580,21 @@ def check_filter_kernels(calls, entry):
           cuda_ms(lambda: lrf.wiener_solve_plain(ds, ss), reps=5),
           WORK["wiener_solve"](a, {}))
 
-    # K8 wiener_lr on the luma plane
+    # K8 wiener_lr on the luma plane, as the main path called it and with
+    # every unit taking Wiener (en on, lam far below 0), so that the whole
+    # restored plane is compared and not only the few units content picks
     _, a, _k = calls["wiener_lr"]
     err = _same(lrf.wiener_lr(*a), lrf.wiener_lr_plain(*a), "wiener_lr")
+    taps = a[3] if bool(a[3].any()) else torch.tensor(
+        [[3, -7, 15]] * 2, dtype=torch.int32, device=a[3].device)
+    forced = (*a[:3], taps, torch.ones_like(a[4]), -1e30, *a[6:])
+    got, ref = lrf.wiener_lr(*forced), lrf.wiener_lr_plain(*forced)
+    err = max(err, _same(got, ref, "wiener_lr (every unit restored)"))
+    hh, ww = a[8], a[9]
+    if not bool(got[1].all()) or torch.equal(
+            got[0], a[0][:hh, :ww].to(torch.int32)):
+        raise RuntimeError("wiener_lr with every unit forced to Wiener did "
+                           "not restore the plane")
     entry("wiener_lr", "rav1e_tpu_torch/csrc/wiener_lr.cu",
           "rav1e_tpu/ops/lrf_jax.py:77", err,
           cuda_ms(lambda: lrf.wiener_lr(*a)),

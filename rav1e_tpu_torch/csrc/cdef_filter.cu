@@ -21,7 +21,8 @@
 //
 // floor(log2) of a strength or of var >> 6 is 31 - __clz(x) (the JAX
 // version goes through a float log2).  Bound on the H100: integer
-// operations (~150 a pixel and candidate), not bytes.
+// operations (about 12 a tap, for the 0, 4, 8 or 12 taps each candidate
+// runs on a sample), not bytes.
 
 #include <cstdint>
 #include <cuda_runtime.h>

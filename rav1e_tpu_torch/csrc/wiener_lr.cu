@@ -22,8 +22,9 @@
 // s1 + lam * rate < s0 in float32, and en.  The restored samples are
 // written first; a unit that keeps the CDEF output rewrites them.
 //
-// Bound on the H100: bytes (three planes read, one written; ~70 integer
-// operations a sample).
+// Bound on the H100: bytes (the CDEF output and the source read, the
+// deblocked plane only in the rows the stripe rule takes, one plane
+// written; ~42 integer operations a sample).
 
 #include <cstdint>
 #include <cuda_runtime.h>

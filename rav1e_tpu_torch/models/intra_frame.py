@@ -454,8 +454,6 @@ class IntraFrameEncoder:
                           self.coded_h, sub_x=self.sub_x, sub_y=self.sub_y)
         self.cdef_strengths = None
         self.cdef_sb = None
-        self._dev_db = self._dev_cdef = None
-        self._dev_db_c = self._dev_cdef_c = None
         if self.cdef_damping:
             raise NotImplementedError(
                 "CDEF on the host filter path (search and apply outside the "
@@ -698,7 +696,6 @@ class IntraFrameEncoder:
                 self._lr_ref = [[3, -7, 15], [3, -7, 15]]
                 self._lr_ref_c = {p: [[3, -7, 15], [3, -7, 15]]
                                   for p in (1, 2)}
-                self._sgr_ref = [-32, 31]
             # replay pass: the whole SB (partition symbols + cached block
             # symbols) runs in C++; python only interleaves read_lr
             fast = (self._lr_replay and self._nbc is not None
@@ -1099,11 +1096,11 @@ class IntraFrameEncoder:
 
     def _lr_write(self, enc, sb_row: int, sb_col: int) -> None:
         """read_lr for one superblock (spec 5.11.57), luma SWITCHABLE frame
-        restoration type (none / wiener / sgrproj per unit); plane 1/2 are
-        RESTORE_NONE (no symbols)."""
+        restoration type (none / wiener per unit: the fused chain decides
+        no sgrproj unit); planes 1/2 a per-unit flag and taps where the
+        frame restores them."""
         from rav1e_tpu_torch.entropy import subexp as se
         from rav1e_tpu_torch.ops import lrf_np as lr
-        from rav1e_tpu_torch.ops import sgr_np as sg
 
         unit = self.LR_UNIT
         n_rows = lr.count_units(unit, self.out_h)
@@ -1117,7 +1114,7 @@ class IntraFrameEncoder:
             for uc in range(uc0, uc1):
                 p = self._lr_params.get((ur, uc))
                 kind = p[0] if p is not None else "none"
-                sym = {"none": 0, "wiener": 1, "sgr": 2}[kind]
+                sym = {"none": 0, "wiener": 1}[kind]
                 enc.symbol_adapt(sym, self.cdf.switchable_restore[0])
                 if kind == "wiener":
                     _, vt, ht, _ = p
@@ -1128,23 +1125,6 @@ class IntraFrameEncoder:
                                 lr.WIENER_TAPS_MAX[i] + 1, lr.WIENER_TAPS_K[i],
                                 int(self._lr_ref[pass_i][i]))
                             self._lr_ref[pass_i][i] = int(taps[i])
-                elif kind == "sgr":
-                    _, si, xqd, _ = p
-                    enc.literal(si, 4)
-                    r0, r1 = sg.sgr_radii(si)
-                    for i, radius in ((0, r0), (1, r1)):
-                        if radius:
-                            se.write_signed_subexp_with_ref(
-                                enc, int(xqd[i]), sg.XQD_MIN[i],
-                                sg.XQD_MAX[i] + 1, sg.SGRPROJ_PRJ_SUBEXP_K,
-                                int(self._sgr_ref[i]))
-                            self._sgr_ref[i] = int(xqd[i])
-                        else:
-                            # not coded; the decoder derives the value
-                            # (0, or clip(128 - xqd0) for i == 1) and updates
-                            # its reference with it — solve_xqd stores the
-                            # same derived values in xqd
-                            self._sgr_ref[i] = int(xqd[i])
         # chroma planes (RESTORE_WIENER): per-unit on/off bool + taps
         # (tap 0 implied zero for chroma; spec read_lr plane-major order)
         lr_types = getattr(self, "lr_types", [1, 0, 0])
@@ -1220,7 +1200,6 @@ class IntraFrameEncoder:
             self._lr_ref = [list(lr_default) for lr_default in
                             ((3, -7, 15), (3, -7, 15))]
             self._lr_ref_c = {p: [[3, -7, 15], [3, -7, 15]] for p in (1, 2)}
-            self._sgr_ref = [-32, 31]
             rec.replay(enc, self.cdf, lr_insert=self._lr_write,
                        cdef_insert=self._cdef_write)
             tile_datas.append(enc.done())

@@ -144,9 +144,7 @@ def collect_filter_chain(fe, handle) -> bool:
     """Wait on a launch_filter_chain handle: copy the filtered planes back
     into fe.rec and fill the CDEF strengths (fe.cdef_strengths,
     fe.cdef_sb) and the fused LR decision (fe._chain_lr = (composed
-    planes, choices, taps, en)).  The planes stay on the card only for
-    the chain, so the device references the JAX package's host LR paths
-    read are None here."""
+    planes, choices, taps, en))."""
     h, w = fe.coded_h, fe.coded_w
     ch, cw = h >> 1, w >> 1
     with fe.stats.stage("chain_wait"):
@@ -163,12 +161,6 @@ def collect_filter_chain(fe, handle) -> bool:
     fe.rec[0][:h, :w] = y
     fe.rec[1][:ch, :cw] = u
     fe.rec[2][:ch, :cw] = v
-    fe._dev_db = fe._dev_cdef = None
-    fe._dev_db_c = fe._dev_cdef_c = None
-    fe._chain_restored = None
-    fe._chain_taps = None
-    if fe.lrf:
-        fe._deblock_copy = None
     if sel is not None:
         fe.cdef_strengths, fe.cdef_sb = cdef._sb_result(
             bool(use_sb), int(frame_best), idx_map.astype(np.int32))

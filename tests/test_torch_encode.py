@@ -24,10 +24,12 @@ order), which changes a decision and so the records from there on.  So:
 At the defaults the Wiener taps are another such seam: the JAX chain
 solves them in f32, the port from exact sums in float64, so a tap may
 round the other way at a .5 tie.  With the JAX fdct and the JAX tap solve
-substituted the stream is byte-identical; with its own, it decodes to the
-port's recon.  The JAX default run is a second module fixture: its
-wavefront pass is the one the first fixture compiled (the pass cache is
-per process), only its filter chain compiles anew.
+substituted (the JAX chain's taps, checked to be solved for the same CDEF
+output) the stream is byte-identical; with its own, it decodes to the
+port's recon.  The JAX default run is a second module fixture of
+NF_DEFAULT frames: its wavefront pass is the one the first fixture
+compiled (the pass cache is per process), only its filter chain compiles
+anew.
 """
 
 import os
@@ -49,6 +51,9 @@ from rav1e_tpu_torch.utils import dav1d_oracle as dav1d
 from rav1e_tpu_torch.utils.content import make_planes
 
 W, H, NF = 320, 240, 2
+# frames of the encodes at the defaults: every frame is a key frame coded
+# alone, so one takes the whole path (the JAX one compiles its chain)
+NF_DEFAULT = 1
 # share of superblock records of the port's own pass that must equal the
 # JAX pass's; the rest follow a coefficient rounded the other way
 SB_SHARE = 0.5
@@ -56,8 +61,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _encode(pkg: str, capture: list | None = None, filters: bool = False,
-            **cfg_kw):
-    """Encode NF keyframes of the bench content, with CDEF and LR off or
+            nf: int = NF, **cfg_kw):
+    """Encode nf keyframes of the bench content, with CDEF and LR off or
     (filters) at bench.py's defaults.  Returns (packet bytes, recon planes
     per frame).  With `capture`, every wavefront launch is recorded as
     (build_pass args, upload, geometry arrays, outputs) in numpy."""
@@ -104,14 +109,14 @@ def _encode(pkg: str, capture: list | None = None, filters: bool = False,
                         return
                     raise
 
-        for y, u, v in make_planes(W, H, NF):
+        for y, u, v in make_planes(W, H, nf):
             ctx.send_frame(Fr.Frame.from_planes(y, u, v))
             drain()
         ctx.flush()
         drain()
     finally:
         wf.build_pass = orig
-    recon = [ctx._encoder.recon_by_input[i] for i in range(NF)]
+    recon = [ctx._encoder.recon_by_input[i] for i in range(nf)]
     return [p.data for p in pkts], recon
 
 
@@ -245,31 +250,52 @@ def test_stream_decodes_to_recon(port_run, jax_run):
 # -- bench.py's defaults: CDEF and loop restoration on --------------------------
 
 
-def _jax_solve(ds, ss):
-    """The JAX chain's tap solve (filter_chain_jax._wiener_solve_dev, with
-    its chroma outer-tap and en rule) in place of K7's plain version."""
-    from rav1e_tpu.ops import filter_chain_jax as jfc
-
-    taps = []
-    for p, (d, s) in enumerate(zip(ds, ss)):
-        v3, h3 = jfc._wiener_solve_dev(jnp, jnp.asarray(d.numpy()),
-                                       jnp.asarray(s.numpy()), *d.shape)
-        t = np.stack([np.asarray(v3), np.asarray(h3)])
-        if p:
-            t[:, 0] = 0
-        taps.append(t)
-    taps = torch.from_numpy(np.concatenate(taps).astype(np.int32))
-    return taps, (taps.reshape(3, 6) != 0).any(1).to(torch.int32)
-
-
 @pytest.fixture(scope="module")
 def jax_default_run():
-    return _encode("rav1e_tpu", filters=True)
+    """The JAX package at the defaults: (packets, recon, and per frame the
+    fused chain's taps and en with the CDEF output they were solved
+    for)."""
+    from rav1e_tpu.ops import filter_chain_jax as jfc
+
+    chains = []
+    orig = jfc.collect_filter_chain
+
+    def spy(fe, handle):
+        done = orig(fe, handle)
+        chains.append((np.asarray(fe._chain_lr[2]), np.asarray(fe._chain_lr[3]),
+                       [p.copy() for p in fe.rec]))
+        return done
+
+    jfc.collect_filter_chain = spy
+    try:
+        data, recon = _encode("rav1e_tpu", filters=True, nf=NF_DEFAULT)
+    finally:
+        jfc.collect_filter_chain = orig
+    return data, recon, chains
+
+
+def _jax_taps(chains):
+    """A stand-in for K7's plain version that returns, frame by frame, the
+    JAX chain's taps (filter_chain_jax._wiener_solve_dev's, with its
+    chroma outer-tap and en rule) after checking that it is asked to solve
+    for the JAX chain's CDEF output: on equal inputs the JAX solve gives
+    those taps."""
+    frames = iter(chains)
+
+    def solve(ds, ss):
+        taps, en, rec = next(frames)
+        for p, d in enumerate(ds):
+            assert np.array_equal(d.numpy(),
+                                  rec[p][: d.shape[0], : d.shape[1]]), p
+        return (torch.from_numpy(taps.astype(np.int32)),
+                torch.from_numpy(en.astype(np.int32)))
+    return solve
 
 
 @pytest.fixture(scope="module")
 def port_default_run():
-    return _encode("rav1e_tpu_torch", filters=True, device="cpu")
+    return _encode("rav1e_tpu_torch", filters=True, nf=NF_DEFAULT,
+                   device="cpu")
 
 
 def test_default_stream_decodes_to_recon(port_default_run, port_run):
@@ -278,8 +304,8 @@ def test_default_stream_decodes_to_recon(port_default_run, port_run):
     the recon (CDEF and LR ran)."""
     data, recon = port_default_run
     dec = dav1d.decode_stream(data)
-    assert len(dec) == NF
-    for f in range(NF):
+    assert len(dec) == NF_DEFAULT
+    for f in range(NF_DEFAULT):
         for p in range(3):
             r = np.asarray(recon[f][p])
             assert np.array_equal(dec[f][p][: r.shape[0], : r.shape[1]],
@@ -290,18 +316,20 @@ def test_default_stream_decodes_to_recon(port_default_run, port_run):
 
 def test_default_stream_matches_jax_given_its_fdct_and_solve(
         jax_default_run, monkeypatch):
-    """With the JAX fdct and the JAX tap solve substituted, the port's
+    """With the JAX fdct and the JAX chain's taps substituted, the port's
     stream at the defaults (wavefront, band maps, deblock, CDEF search and
     apply, fused LR, the two-pass entropy coder with read_lr and cdef_idx)
     is byte-identical to the JAX package's, and so is its recon."""
     from rav1e_tpu_torch.ops import lrf as tlr
 
+    jdata, jrecon, chains = jax_default_run
     monkeypatch.setattr(tt, "fdct_plain", _jax_fdct)
-    monkeypatch.setattr(tlr, "wiener_solve_plain", _jax_solve)
-    data, recon = _encode("rav1e_tpu_torch", filters=True, device="cpu")
-    jdata, jrecon = jax_default_run
+    monkeypatch.setattr(tlr, "wiener_solve_plain", _jax_taps(chains))
+    data, recon = _encode("rav1e_tpu_torch", filters=True, nf=NF_DEFAULT,
+                          device="cpu")
+    assert len(chains) == NF_DEFAULT
     assert data == jdata
-    for f in range(NF):
+    for f in range(NF_DEFAULT):
         for p in range(3):
             assert np.array_equal(np.asarray(recon[f][p]),
                                   np.asarray(jrecon[f][p])), (f, p)

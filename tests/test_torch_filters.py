@@ -331,19 +331,20 @@ def _chain_frame(rng, out_w, out_h, damping=3, lrf=True):
                 sgr_search=False, q=100, lam=812.5, stats=_Stage())
 
 
-def _jax_solve(ds, ss):
-    """_wiener_solve_dev in place of K7's plain version (the tap rule of
-    filter_chain_jax.py:252-256)."""
-    taps = []
-    for p, (d, s) in enumerate(zip(ds, ss)):
-        v3, h3 = jfc._wiener_solve_dev(jnp, jnp.asarray(d.numpy()),
-                                       jnp.asarray(s.numpy()), *d.shape)
-        t = np.stack([np.asarray(v3), np.asarray(h3)])
-        if p:
-            t[:, 0] = 0
-        taps.append(t)
-    taps = torch.from_numpy(np.concatenate(taps).astype(np.int32))
-    return taps, (taps.reshape(3, 6) != 0).any(1).to(torch.int32)
+def _jax_taps(jfe):
+    """A stand-in for K7's plain version that returns the JAX chain's taps
+    (_wiener_solve_dev's, with the tap rule of filter_chain_jax.py:252-256)
+    after checking that it is asked to solve for the JAX chain's CDEF
+    output: on equal inputs the JAX solve gives those taps."""
+    jtaps, jen = jfe._chain_lr[2], jfe._chain_lr[3]
+
+    def solve(ds, ss):
+        for p, d in enumerate(ds):
+            assert np.array_equal(d.numpy(), jfe.rec[p][: d.shape[0],
+                                                     : d.shape[1]]), p
+        return (torch.from_numpy(np.asarray(jtaps, np.int32)),
+                torch.from_numpy(np.asarray(jen, np.int32)))
+    return solve
 
 
 def _port_chain(base, **over):
@@ -370,13 +371,13 @@ def jax_chain():
 
 @pytest.mark.parametrize("resident", [False, True])
 def test_chain_matches_jax(jax_chain, monkeypatch, resident):
-    """launch/collect of the whole chain, with the JAX tap solve in place
-    of K7's: the CDEF output, the strength choice and the fused LR
+    """launch/collect of the whole chain, with the JAX chain's taps in
+    place of K7's: the CDEF output, the strength choice and the fused LR
     decision (composed planes, choices, taps, en) equal the JAX chain's,
     uploading the whole recon or splicing the host stripe into the
     wavefront's resident planes."""
     base, jfe = jax_chain
-    monkeypatch.setattr(tlr, "wiener_solve_plain", _jax_solve)
+    monkeypatch.setattr(tlr, "wiener_solve_plain", _jax_taps(jfe))
     dev = None
     if resident:
         dev = [_t(p.copy()).to(torch.uint8) for p in base["rec"]]
