@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--profile]
 
 1. Prints the card's name and power limit (nvidia-smi).
-2. Builds the eight CUDA kernels (csrc/*.cu, one nvcc each, in parallel)
+2. Builds the ten CUDA kernels (csrc/*.cu, one nvcc each, in parallel)
    and the native entropy library, and prints the build seconds.
 3. Drives the main path once: 8 key frames of 1920x1080 through Config ->
    Context in bench.py's keyframe configuration (speed-6 defaults, so
@@ -31,11 +31,24 @@
 6. Drives the keyframe path with CDEF and loop restoration off on 2
    frames, with the counts set to 0 before it: K1-K4 must launch, and its
    output is checked the same way.
-7. Times a second encode of the main path's frames (frames/s), then an
-   encode of the first four with each device stage timed serialised
-   (wavefront pass, band maps, the filter chain and, inside it, CDEF and
-   LR); with --profile also under torch.profiler (the card's busy time by
-   kernel; minutes).
+7. Times a second encode of the first KEY_TIMED frames of the main path
+   (frames/s), then an encode of the first four with each device stage
+   timed serialised (wavefront pass, band maps, the filter chain and,
+   inside it, CDEF and LR); with --profile also under torch.profiler (the
+   card's busy time by kernel; minutes).  Times the CDEF decision glue
+   (ops/cdef.py decide) alone beside its bound.
+8. Drives the mixed-GOP path: bench.py's mixed configuration (1 key + 15
+   inter frames of 1920x1080, max_key_frame_interval 240, low latency,
+   speed-6 defaults), with the counts set to 0 before it.  All 15 inter
+   frames must take the inter wavefront, every kernel must launch (K9
+   mc_pred, K10 me_fullpel and fwd_txq with thinning among them), and
+   blocks must choose inter prediction with nonzero MVs.  Holds K9 and
+   K10 (identical) and fwd_txq with thinning (the tie rule) against their
+   plain versions on the path's largest calls, timed beside their bounds;
+   re-derives sampled superblocks of every frame (inter blocks by mc_np
+   from the reference's output recon) and INTER_FILTER_FRAMES inter frames
+   through deblock_np, cdef_np and lrf_np; a second encode must write the
+   same bytes, and gives the mixed GOP's frames/s and stage seconds.
 
 The line before the last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero.
@@ -50,8 +63,11 @@ import sys
 import time
 
 W, H, NFRAMES = 1920, 1080, 8
+MIXED_FRAMES = 16  # bench.py's mixed GOP: 1 key + 15 inter
+KEY_TIMED = 4  # frames of the keyframe path's timed second encode
 SB_SAMPLES = 16
 FILTER_FRAMES = 2  # frames whose whole filter chain is re-derived in numpy
+INTER_FILTER_FRAMES = 2  # inter frames of the mixed GOP re-derived so
 OFF_FRAMES = 2  # frames of the CDEF/LR-off path
 WIENER_TIE = 1e-9  # |coef * 128 - (k + .5)| where a tap may round apart
 FDCT_TIE_SHARE = 1e-3
@@ -82,27 +98,37 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def encode(frames, check: bool, device: str = "cuda", filters: bool = True):
+def encode(frames, check: bool, device: str = "cuda", filters: bool = True,
+           mixed: bool = False):
     """Encode `frames` through the public API on `device`, in bench.py's
     keyframe configuration (filters=False: with CDEF and loop restoration
-    off).  With check, keep each frame's pre-filter planes and wavefront
-    records."""
+    off), or with mixed in its mixed-GOP configuration (a key frame, then
+    inter frames).  With check, keep each frame's pre-filter planes and
+    wavefront records; the encoders are returned in coding order."""
     from rav1e_tpu_torch import Config, EncoderConfig, SpeedSettings
     from rav1e_tpu_torch.api.context import EncoderError, EncoderStatus
-    from rav1e_tpu_torch.models import intra_frame
+    from rav1e_tpu_torch.models import inter_frame, intra_frame
     from rav1e_tpu_torch.ops import filter_chain
 
     ss = SpeedSettings.from_preset(6)
     if not filters:
         ss.cdef = False
         ss.lrf = False
-    cfg = Config(enc=EncoderConfig(
-        width=W, height=H, quantizer=100, min_key_frame_interval=1,
-        max_key_frame_interval=1, rdo_lookahead_frames=8, low_latency=True,
-        speed_settings=ss), device=device)
+    if mixed:
+        enc = EncoderConfig(width=W, height=H, quantizer=100,
+                            max_key_frame_interval=240,
+                            rdo_lookahead_frames=8, low_latency=True,
+                            speed_settings=ss)
+    else:
+        enc = EncoderConfig(
+            width=W, height=H, quantizer=100, min_key_frame_interval=1,
+            max_key_frame_interval=1, rdo_lookahead_frames=8,
+            low_latency=True, speed_settings=ss)
+    cfg = Config(enc=enc, device=device)
     seen = []
     orig_splice = filter_chain._splice
     orig_tiles = intra_frame.IntraFrameEncoder._encode_tiles_wavefront
+    orig_install = inter_frame.InterFrameEncoder._install_wavefront
 
     def splice(fe, dev_rec, device):
         planes = orig_splice(fe, dev_rec, device)
@@ -114,9 +140,15 @@ def encode(frames, check: bool, device: str = "cuda", filters: bool = True):
         seen.append(self)
         return orig_tiles(self, wf)
 
+    def install(self, wf):
+        self._chk_wf = wf
+        seen.append(self)
+        return orig_install(self, wf)
+
     if check:
         filter_chain._splice = splice
         intra_frame.IntraFrameEncoder._encode_tiles_wavefront = tiles
+        inter_frame.InterFrameEncoder._install_wavefront = install
     try:
         ctx = cfg.new_context()
         pkts = []
@@ -139,10 +171,13 @@ def encode(frames, check: bool, device: str = "cuda", filters: bool = True):
     finally:
         filter_chain._splice = orig_splice
         intra_frame.IntraFrameEncoder._encode_tiles_wavefront = orig_tiles
+        inter_frame.InterFrameEncoder._install_wavefront = orig_install
     if len(pkts) != len(frames):
         raise RuntimeError(f"{len(pkts)} packets for {len(frames)} frames")
     recon = [ctx._encoder.recon_by_input[i] for i in range(len(frames))]
     encode.stages = dict(ctx._encoder.stats.stage_seconds)
+    encode.mode_counts = dict(ctx._encoder.stats.mode_counts)
+    encode.frame_types = [p.frame_type for p in pkts]
     return [p.data for p in pkts], recon, seen
 
 
@@ -226,6 +261,45 @@ def _wiener_lr_work(a, k):
             + n * (WIENER_PASS_OPS + 2 * SSE_OPS + 1))
 
 
+MC_PASS_OPS = (18, 20)  # a sample of the horizontal / vertical 8-tap pass:
+#                         8 multiplies and 8 adds, then round and shift
+#                         (and two clamps after the vertical pass)
+SAD_OPS = 3  # subtract, absolute value, accumulate
+
+
+def _mc_work(a, k):
+    """Bytes and operations of one K9 launch: the padded reference plane
+    read once (uint8), four int32 words a block in, the int32 prediction
+    out; the two passes over each block's samples."""
+    ref, n, w, h = a[0], a[2].numel(), a[6], a[7]
+    return (ref.numel() * ref.element_size() + n * 16 + n * w * h * 4,
+            n * ((h + 7) * w * MC_PASS_OPS[0] + h * w * MC_PASS_OPS[1]))
+
+
+def _me_work(a, k):
+    """Bytes and operations of one K10 call (its two launches): both
+    planes read once (uint8), two int32 words a 32x32 block out; the 4x4
+    sums of both planes, the 289 quarter-resolution SADs of 64 terms and
+    the 25 full-resolution SADs of 1024 terms a block, and both argmins."""
+    src, ref = a[0], a[1]
+    hh, ww = src.shape
+    nb = (hh // 32) * (ww // 32)
+    return (src.numel() + ref.numel() + nb * 8,
+            2 * (hh * ww // 16) * 15 + nb * (289 * 64 + 25 * 1024) * SAD_OPS
+            + nb * (289 + 25) * 2)
+
+
+def _decide_work(a, k):
+    """Bytes and operations of the CDEF decision (ops/cdef.py decide): the
+    11 candidates' superblock SSE (int32) and the per-mi skip map read,
+    the per-SB index map written; the joint cost, per-SB and frame sums
+    and argmins over the 8 pairs, and the skip reduction per mi."""
+    sse, skip = a[0], a[1]
+    nsb = sse[0].numel()
+    return (sse.numel() * 4 + skip.numel() * skip.element_size()
+            + nsb * 4 + 16, nsb * 8 * 5 + skip.numel())
+
+
 # (bytes, operations) of one call of each kernel from its arguments: each
 # input read once, each output written once; operations are fp32 FLOPs
 # (K2) or integer operations (the rest), counted per sample
@@ -235,6 +309,13 @@ WORK = {
         + a[0].shape[0] * (61 if a[5] else 7) * a[4] ** 2 * 4,
         a[0].shape[0] * (61 if a[5] else 7) * a[4] ** 2 * 10),
     "fwd_txq": lambda a, k: _fwd_work(a, k, True),
+    # K2 with the inter race's thinning: one float threshold a block more
+    "fwd_txq_thin": lambda a, k: (
+        _fwd_work(a, k, True)[0] + a[0].numel() // a[0].shape[-1] ** 2 * 4,
+        _fwd_work(a, k, True)[1]),
+    "mc_pred": _mc_work,
+    "me_fullpel": _me_work,
+    "cdef_decide": _decide_work,
     "fwd_rd_float": lambda a, k: _fwd_work(a, k, False),
     "inv_txfm": lambda a, k: (a[0].numel() * 8,
                               a[0].numel() * 4 * a[0].shape[-1].bit_length()),
@@ -265,7 +346,7 @@ class Capture:
     def __init__(self):
         from rav1e_tpu_torch.models import device_pipeline
         from rav1e_tpu_torch.ops import (cdef, deblock, filter_chain, intra,
-                                         lrf, transforms)
+                                         lrf, mc, transforms)
 
         self.calls = {}
         self.bounds = {}
@@ -286,8 +367,15 @@ class Capture:
                 (lrf, "wiener_lr", "wiener_lr", lambda a, k: a[8] * a[9]),
                 (intra, "intra_pred", "intra_pred",
                  lambda a, k: a[0].shape[0] * (61 if a[5] else 7) * a[4] ** 2),
-                (transforms, "fwd_txq", "fwd_txq",
+                (transforms, "fwd_txq",
+                 lambda a, k: ("fwd_txq" if k.get("thr") is None
+                               else "fwd_txq_thin"),
                  lambda a, k: a[0].numel()),
+                (mc, "mc_block_batch", "mc_pred",
+                 lambda a, k: a[2].numel() * a[6] * a[7]),
+                (device_pipeline, "me_fullpel", "me_fullpel",
+                 lambda a, k: a[0].numel()),
+                (cdef, "decide", "cdef_decide", lambda a, k: a[0].numel()),
                 (transforms, "fwd_rd_float", "fwd_rd_float",
                  lambda a, k: a[0].numel()),
                 (transforms, "inv_txfm", "inv_txfm",
@@ -322,7 +410,7 @@ class Capture:
         def spy(*a, **k):
             n = size(a, k)
             kk_ = key(a, k) if callable(key) else key
-            b = bound_ms(*WORK[name if name in WORK else kk_](a, k))
+            b = bound_ms(*WORK[kk_ if kk_ in WORK else name](a, k))
             self.bounds[self.stage] = self.bounds.get(self.stage, 0.0) + b
             if kk_ not in self.calls or n > self.calls[kk_][0]:
                 self.calls[kk_] = (n, tuple(clone(v) for v in a),
@@ -353,14 +441,10 @@ def fdct_ties(resid, Fv, FhT, tidx):
     return (frac - 0.5).abs() <= 8 * err
 
 
-def check_kernels(calls, counts, frames_per_run):
-    """Parity, times and bounds of each kernel on its captured inputs.
-    Returns the kernels JSON list."""
-    import torch
-
-    from rav1e_tpu_torch.ops import deblock, intra, transforms as tt
-
-    out = []
+def make_entry(out: list, counts: dict, frames_per_run: int):
+    """A function that prints one kernel's result line and appends its
+    entry of the kernels JSON list to `out`; launches are the counts of
+    the path the kernel was captured on."""
 
     def entry(name, source, replaces, err, ms, plain_ms, work,
               library_ms=None):
@@ -378,6 +462,47 @@ def check_kernels(calls, counts, frames_per_run):
             / frames_per_run, max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=max(tb, to), bound_by="bytes" if tb >= to
             else "operations", library_ms=library_ms))
+
+    return entry
+
+
+def check_fwd_ties(got, ref, a, k, name):
+    """K2's parity rule: levels and dequantised values identical except
+    at coefficients within the fp32 error bound of a .5 tie (at most
+    FDCT_TIE_SHARE of them), the sums close where no tie is.  Returns
+    (max |level difference|, share of levels differing)."""
+    import torch
+
+    resid, Fv, FhT = a[:3]
+    lv, dq, dist, rate = got
+    rl, rdq, rdist, rrate = ref
+    ties = fdct_ties(resid, Fv, FhT, k.get("tidx"))
+    bad = (lv != rl) | (dq != rdq)
+    if (bad & ~ties).any():
+        raise RuntimeError(f"{name} levels differ away from rounding ties")
+    share = float(bad.float().mean())
+    if share > FDCT_TIE_SHARE:
+        raise RuntimeError(f"{name}: {share:.2e} of levels differ")
+    clean = ~ties.flatten(-2).any(-1)
+    if not torch.allclose(dist[clean], rdist[clean], rtol=1e-4) or \
+            not torch.allclose(rate[clean], rrate[clean], rtol=1e-4):
+        raise RuntimeError(f"{name} sums differ from the plain version")
+    print(json.dumps({name + "_ties": {
+        "blocks": resid.numel() // resid.shape[-1] ** 2,
+        "n": resid.shape[-1], "m": Fv.shape[-2], "levels_differing": share,
+        "tie_coefficients": float(ties.float().mean())}}))
+    return int((lv - rl).abs().max()), share
+
+
+def check_kernels(calls, counts, frames_per_run):
+    """Parity, times and bounds of each kernel on its captured inputs.
+    Returns the kernels JSON list."""
+    import torch
+
+    from rav1e_tpu_torch.ops import deblock, intra, transforms as tt
+
+    out = []
+    entry = make_entry(out, counts, frames_per_run)
 
     # K1 intra_pred
     _, a, _k = calls["intra_pred"]
@@ -398,34 +523,16 @@ def check_kernels(calls, counts, frames_per_run):
     _, a, k = calls["fwd_txq"]
     resid, Fv, FhT, qdc, qac, shift = a[:6]
     tidx = k.get("tidx")
-    lv, dq, dist, rate = tt.fwd_txq(*a, **k)
     qd = tt._as_blocks(qdc, resid)
     qa = tt._as_blocks(qac, resid)
     ti = (tt._as_blocks(tidx, resid) if tidx is not None else
           torch.zeros(resid.shape[:-2], dtype=torch.int32,
                       device=resid.device))
-    rl, rdq, rdist, rrate = tt.fwd_txq_plain(resid, Fv, FhT, ti, qd, qa,
-                                             shift)
-    ties = fdct_ties(resid, Fv, FhT, tidx)
-    bad = (lv != rl) | (dq != rdq)
-    if (bad & ~ties).any():
-        raise RuntimeError("fwd_txq levels differ away from rounding ties")
-    share = float(bad.float().mean())
-    if share > FDCT_TIE_SHARE:
-        raise RuntimeError(f"fwd_txq: {share:.2e} of levels differ")
-    clean = ~ties.flatten(-2).any(-1)
-    if not torch.allclose(dist[clean], rdist[clean], rtol=1e-4) or \
-            not torch.allclose(rate[clean], rrate[clean], rtol=1e-4):
-        raise RuntimeError("fwd_txq sums differ from the plain version")
-    err = int((lv - rl).abs().max())
-    nb = resid.numel() // resid.shape[-1] ** 2
-    n, m = resid.shape[-1], Fv.shape[-2]
+    err, _share = check_fwd_ties(
+        tt.fwd_txq(*a, **k),
+        tt.fwd_txq_plain(resid, Fv, FhT, ti, qd, qa, shift), a, k, "fwd_txq")
     Fv0, FhT0 = Fv[0], FhT[0]
     xf = resid.float()
-    print(json.dumps({"fwd_txq_ties": {"blocks": nb, "n": n, "m": m,
-                                       "levels_differing": share,
-                                       "tie_coefficients":
-                                       float(ties.float().mean())}}))
     entry("fwd_txq", "rav1e_tpu_torch/csrc/fwd_txq.cu",
           "rav1e_tpu/ops/transforms_jax.py:465", err,
           cuda_ms(lambda: tt.fwd_txq(*a, **k)),
@@ -603,6 +710,102 @@ def check_filter_kernels(calls, entry):
 
 
 
+def check_inter_kernels(calls, counts, frames_per_run):
+    """K9 mc_pred, K10 me_fullpel and K2 with the inter race's thinning on
+    the mixed-GOP path's largest calls: parity with the plain versions
+    (K9 and K10 identical, K2 by its tie rule), times and bounds.  No
+    single PyTorch call computes MC or the motion search (library_ms
+    null); K2's is the torch.matmul forward transform.  Returns the
+    kernels JSON list."""
+    import torch
+
+    from rav1e_tpu_torch.models import device_pipeline as dp
+    from rav1e_tpu_torch.ops import mc, transforms as tt
+
+    out = []
+    entry = make_entry(out, counts, frames_per_run)
+
+    _, a, k = calls["mc_pred"]
+    err = _same(mc.mc_block_batch(*a, **k), mc.mc_block_batch_plain(*a, **k),
+                "mc_pred")
+    print(json.dumps({"mc_pred_call": {"blocks": int(a[2].numel()),
+                                       "w": a[6], "h": a[7], "sub": a[8]}}))
+    entry("mc_pred", "rav1e_tpu_torch/csrc/mc_pred.cu",
+          "rav1e_tpu/ops/mc_jax.py:71", err,
+          cuda_ms(lambda: mc.mc_block_batch(*a, **k)),
+          cuda_ms(lambda: mc.mc_block_batch_plain(*a, **k), reps=3),
+          WORK["mc_pred"](a, k))
+
+    _, a, k = calls["me_fullpel"]
+    err = _same(dp.me_fullpel(*a, **k), dp.me_fullpel_plain(*a, **k),
+                "me_fullpel")
+    entry("me_fullpel", "rav1e_tpu_torch/csrc/me_fullpel.cu",
+          "rav1e_tpu/models/device_pipeline.py:290", err,
+          cuda_ms(lambda: dp.me_fullpel(*a, **k)),
+          cuda_ms(lambda: dp.me_fullpel_plain(*a, **k), reps=3),
+          WORK["me_fullpel"](a, k))
+
+    _, a, k = calls["fwd_txq_thin"]
+    resid, Fv, FhT, qdc, qac, shift = a[:6]
+    qd, qa = tt._as_blocks(qdc, resid), tt._as_blocks(qac, resid)
+    thr = tt._as_blocks(k["thr"], resid, torch.float32)
+    ti = torch.zeros(resid.shape[:-2], dtype=torch.int32, device=resid.device)
+    plain = lambda: tt.fwd_txq_plain(resid, Fv, FhT, ti, qd, qa, shift,
+                                     thr=thr)
+    got = tt.fwd_txq(*a, **k)
+    err, _share = check_fwd_ties(got, plain(), a, k, "fwd_txq_thin")
+    thinned = int((tt.fwd_txq(*a[:6])[0].abs() == 1).sum()
+                  - (got[0].abs() == 1).sum())
+    print(json.dumps({"fwd_txq_thin_call": {"levels_thinned": thinned}}))
+    Fv0, FhT0, xf = Fv[0], FhT[0], resid.float()
+    entry("fwd_txq_thin", "rav1e_tpu_torch/csrc/fwd_txq.cu",
+          "rav1e_tpu/models/wavefront.py:416", err,
+          cuda_ms(lambda: tt.fwd_txq(*a, **k)), cuda_ms(plain),
+          WORK["fwd_txq_thin"](a, k),
+          library_ms=cuda_ms(lambda: torch.matmul(
+              Fv0, torch.matmul(xf, FhT0))))
+    return out
+
+
+def time_cdef_decide(calls) -> dict:
+    """The CDEF decision glue (ops/cdef.py decide: a few device torch ops
+    between K6's search and apply) timed alone on the main path's last
+    call, beside its bound."""
+    from rav1e_tpu_torch.ops import cdef
+
+    _, a, k = calls["cdef_decide"]
+    nbytes, ops = WORK["cdef_decide"](a, k)
+    tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
+    return {"ms": cuda_ms(lambda: cdef.decide(*a, **k)),
+            "bound_ms": max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations",
+            "superblocks": int(a[0][0].numel())}
+
+
+def time_stages(targets, secs) -> list:
+    """Wrap each (owner, name, key) of `targets` so that every call ends
+    in a synchronize and adds its seconds to secs[key] (key may be a
+    function of the call's arguments).  Returns the (owner, name, orig)
+    list that undoes it."""
+    import torch
+
+    undo = []
+    for owner, name, key in targets:
+        orig = getattr(owner, name)
+
+        def run(*a, _orig=orig, _key=key, **k):
+            t = time.perf_counter()
+            r = _orig(*a, **k)
+            torch.cuda.synchronize()
+            kk = _key(a) if callable(_key) else _key
+            secs[kk] += time.perf_counter() - t
+            return r
+
+        setattr(owner, name, run)
+        undo.append((owner, name, orig))
+    return undo
+
+
 def breakdown(frames, profiled: bool) -> dict:
     """One encode of `frames` with a host timer around each device stage
     (each ending in a synchronize, so the stages run serialised): seconds
@@ -620,27 +823,13 @@ def breakdown(frames, profiled: bool) -> dict:
     from rav1e_tpu_torch.ops import cdef, filter_chain
 
     secs = Counter()
-    undo = []
-
-    def timed(mod, name, key):
-        orig = getattr(mod, name)
-
-        def run(*a, **k):
-            t = time.perf_counter()
-            r = orig(*a, **k)
-            torch.cuda.synchronize()
-            secs[key] += time.perf_counter() - t
-            return r
-
-        setattr(mod, name, run)
-        undo.append((mod, name, orig))
-
-    timed(wavefront, "launch_wavefront_batch", "wavefront_pass")
-    timed(wavefront, "launch_wavefront", "wavefront_pass")
-    timed(device_pipeline, "launch_band_rd_maps", "band_maps")
-    timed(filter_chain, "launch_filter_chain", "filter_chain")
-    timed(cdef, "search_apply", "cdef")  # inside the chain
-    timed(filter_chain, "_restore", "lr")  # inside the chain
+    undo = time_stages((
+        (wavefront, "launch_wavefront_batch", "wavefront_pass"),
+        (wavefront, "launch_wavefront", "wavefront_pass"),
+        (device_pipeline, "launch_band_rd_maps", "band_maps"),
+        (filter_chain, "launch_filter_chain", "filter_chain"),
+        (cdef, "search_apply", "cdef"),  # inside the chain
+        (filter_chain, "_restore", "lr")), secs)  # inside the chain
     prof = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
             if profiled else contextlib.nullcontext())
     try:
@@ -709,29 +898,120 @@ def check_output(data, recon, fes, filter_frames: int):
               "re-derivation instead")
         summary["dav1d"] = "absent"
     rng = np.random.default_rng(0)
-    checked = 0
+    checked = inter_sbs = 0
     for fe, r in zip(fes, recon):
         wf, pre = fe._chk_wf, fe._chk_prefilter
+        refs = fe.refs[1] if wf.has_mv else None  # LAST's output recon
         dev = np.argwhere(wf.geom.device_sb)
         pick = dev[rng.choice(len(dev), min(SB_SAMPLES, len(dev)),
                               replace=False)]
         for sr, sc in pick:
             if not recon_check.rederive_sb(wf, pre, int(sr), int(sc),
-                                           fe.dc_q, fe.ac_q):
+                                           fe.dc_q, fe.ac_q, refs):
                 raise RuntimeError(f"SB ({sr}, {sc}) does not re-derive")
             checked += 1
-    for f in range(filter_frames):
+            inter_sbs += wf.has_mv and any(
+                b[4] == 13 for b in wf.sb_records(int(sr), int(sc)))
+    # the first filter_frames frames, or with inter frames the first
+    # filter_frames of those
+    inter = [f for f, fe in enumerate(fes) if fe._chk_wf.has_mv]
+    for f in (inter or list(range(len(fes))))[:filter_frames]:
         fe = fes[f]
         if not recon_check.filters_match(fe, fe._chk_prefilter, recon[f]):
             raise RuntimeError(f"frame {f}: the numpy filter chain over the "
                                "pre-filter frame differs from the output")
     summary["sbs_rederived"] = checked
+    summary["sbs_rederived_with_inter_blocks"] = int(inter_sbs)
     summary["filter_chain_np_frames"] = filter_frames
     summary["cdef_per_sb"] = sum(fe.cdef_sb is not None for fe in fes)
     summary["lr_units_wiener"] = sum(
         sum(v is not None for v in getattr(fe, "_lr_params", {}).values())
         for fe in fes)
     return summary
+
+
+def mixed_gop(card: str) -> list:
+    """The mixed-GOP path (phase 8 of the module docstring).  Returns the
+    kernels JSON entries of K9, K10 and K2 with thinning."""
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from rav1e_tpu_torch import kernels
+    from rav1e_tpu_torch.models import wavefront
+    from rav1e_tpu_torch.utils.content import make_frames
+
+    frames = make_frames(W, H, MIXED_FRAMES)
+    cap = Capture()
+    # the passes and phase A timed serialised in this (checked) encode
+    secs = Counter()
+    undo = time_stages((
+        (wavefront, "launch_wavefront",
+         lambda a: ("inter_pass" if getattr(a[0], "wf_inter", False)
+                    else "key_pass")),
+        (wavefront.WavefrontPass, "_inter_phase", "inter_phase_a")), secs)
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        data, recon, fes = encode(frames, check=True, mixed=True)
+        torch.cuda.synchronize()
+    finally:
+        cap.restore()
+        for owner, name, orig in undo:
+            setattr(owner, name, orig)
+    t_first = time.perf_counter() - t0
+    counts = dict(kernels.COUNTS)
+    types = encode.frame_types
+    print(json.dumps({"mixed_path_launches": counts,
+                      "first_encode_s": t_first, "frame_types": types,
+                      "serialised_s": dict(secs), "card": card}))
+    missing = [k for k, v in counts.items() if v == 0]
+    if missing:
+        raise RuntimeError(f"kernels not launched on the mixed path: "
+                           f"{missing}")
+    n_inter = sum(fe._chk_wf.has_mv for fe in fes)
+    if types.count("inter") != MIXED_FRAMES - 1 or \
+            n_inter != MIXED_FRAMES - 1 or len(fes) != MIXED_FRAMES:
+        raise RuntimeError(f"{n_inter} inter frames of {types} took the "
+                           "inter wavefront")
+    # inter blocks and nonzero MVs of the device superblocks' records
+    inter_blocks = nonzero_mv = 0
+    for fe in fes:
+        wf = fe._chk_wf
+        if not wf.has_mv:
+            continue
+        for sr, sc in np.argwhere(wf.geom.device_sb):
+            for b in wf.sb_records(int(sr), int(sc)):
+                if b[4] == 13:
+                    inter_blocks += 1
+                    nonzero_mv += (b[16], b[17]) != (0, 0)
+    print(json.dumps({"mixed_blocks": {
+        "inter_blocks_device_sbs": inter_blocks,
+        "inter_blocks_nonzero_mv": nonzero_mv,
+        "mode_counts": encode.mode_counts}}))
+    if inter_blocks == 0 or nonzero_mv == 0:
+        raise RuntimeError("no block chose inter prediction with a motion "
+                           "vector")
+    print(json.dumps({"mixed_bound_ms_per_frame": {
+        k: v / MIXED_FRAMES for k, v in cap.bounds.items()}, "card": card}))
+    results = check_inter_kernels(cap.calls, counts, MIXED_FRAMES)
+    t1 = time.perf_counter()
+    summary = check_output(data, recon, fes, INTER_FILTER_FRAMES)
+    print(json.dumps({"mixed_output": summary, "bytes": sum(map(len, data)),
+                      "check_s": time.perf_counter() - t1}))
+    t2 = time.perf_counter()
+    data2, _, _ = encode(frames, check=False, mixed=True)
+    torch.cuda.synchronize()
+    t_enc = time.perf_counter() - t2
+    if data2 != data:
+        raise RuntimeError("the second mixed-GOP encode wrote other bytes")
+    print(json.dumps({"mixed_encode": {
+        "frames": MIXED_FRAMES, "size": f"{W}x{H}", "seconds": t_enc,
+        "fps": MIXED_FRAMES / t_enc, "stages_s": encode.stages,
+        "card": card}}))
+    return results
 
 
 def main() -> int:
@@ -789,7 +1069,9 @@ def main() -> int:
     counts = dict(kernels.COUNTS)
     print(json.dumps({"main_path_launches": counts,
                       "first_encode_s": t_first}))
-    missing = [k for k, v in counts.items() if v == 0]
+    # the keyframe path runs K1-K8 (K9, K10 and the thinning run on inter
+    # frames, phase 8)
+    missing = [k for k in kernels.KERNELS[:8] if counts[k] == 0]
     if missing:
         raise RuntimeError(f"kernels not launched on the main path: {missing}")
     if len(fes) != NFRAMES:
@@ -820,17 +1102,20 @@ def main() -> int:
                                    "bytes": sum(map(len, off_data))}}))
 
     t4 = time.perf_counter()
-    data2, _, _ = encode(frames, check=False)
+    data2, _, _ = encode(frames[:KEY_TIMED], check=False)
     torch.cuda.synchronize()
     t_enc = time.perf_counter() - t4
-    if data2 != data:
+    if data2 != data[:KEY_TIMED]:
         raise RuntimeError("the second encode wrote other bytes")
-    print(json.dumps({"encode": {"frames": NFRAMES, "size": f"{W}x{H}",
-                                 "seconds": t_enc, "fps": NFRAMES / t_enc,
+    print(json.dumps({"encode": {"frames": KEY_TIMED, "size": f"{W}x{H}",
+                                 "seconds": t_enc, "fps": KEY_TIMED / t_enc,
                                  "stages_s": encode.stages, "card": card}}))
     print(json.dumps({"breakdown": breakdown(frames[:4],
                                              "--profile" in sys.argv),
                       "card": card}))
+    print(json.dumps({"cdef_decide": time_cdef_decide(cap.calls),
+                      "card": card}))
+    results += mixed_gop(card)
     print(json.dumps({"parity": {r["name"]: r["max_abs_err"]
                                  for r in results}}))
     if any(m == "jax" or m.startswith("jax.") or m == "rav1e_tpu"

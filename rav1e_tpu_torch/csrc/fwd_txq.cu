@@ -2,8 +2,9 @@
 //
 // Replaces rav1e_tpu/ops/transforms_jax.py:465 fdct_batch, :489 quantize and
 // :511 dequantize, the tx-domain RD sums of models/wavefront.py:640-646 with
-// coeff_rate (545), and (variant FLOAT_FLOOR) the float RD of
-// models/device_pipeline.py:156 rd_analysis (170-183).  On the TPU the
+// coeff_rate (545), the level-1 thinning of the inter candidate race
+// (models/wavefront.py:441-445, :478-482), and (variant FLOAT_FLOOR) the
+// float RD of models/device_pipeline.py:156 rd_analysis (170-183).  On the TPU the
 // transform is an fp32 einsum on the matrix unit and the rest separate
 // elementwise passes; here one block owns one transform and nothing but the
 // outputs leaves the SM.
@@ -15,6 +16,11 @@
 //                  min((|c << shift| + bias) / q, 32767) exact; dequant with
 //                  the 24-bit mask and clamp; dist += ((c - dq) << shift)^2,
 //                  nz and log2(1 + |level|) summed for the rate model.
+//                  With a per-block threshold thr (the inter race), a
+//                  level of magnitude 1 off the DC position is dropped
+//                  where (float)|c << shift| < thr[block], before the
+//                  dequantiser, so dequant, dist and rate see the thinned
+//                  levels.
 //   FLOAT_FLOOR (a template parameter, chosen at the C entry):
 //                  level = floor((|y| + q' * 13/32) / q') with q' = q / 2^shift
 //                  in fp32 (each op rounded separately, as XLA does); dist +=
@@ -39,7 +45,8 @@ __global__ void fwd_txq_kernel(const int32_t *__restrict__ resid, int n,
                                const float *__restrict__ FhT,
                                const int32_t *__restrict__ tidx,
                                const int32_t *__restrict__ qdc,
-                               const int32_t *__restrict__ qac, int shift,
+                               const int32_t *__restrict__ qac,
+                               const float *__restrict__ thr, int shift,
                                int bias_num, int lim,
                                float rate_nz, float rate_mag,
                                int32_t *__restrict__ levels,
@@ -69,6 +76,7 @@ __global__ void fwd_txq_kernel(const int32_t *__restrict__ resid, int n,
     }
     __syncthreads();
     const int q_dc = qdc[blk], q_ac = qac[blk];
+    const float thr_b = thr ? thr[blk] : 0.f;
     float d_acc = 0.f, r_acc = 0.f;
     int n_acc = 0;
     for (int i = tid; i < m * m; i += THREADS) {
@@ -90,6 +98,7 @@ __global__ void fwd_txq_kernel(const int32_t *__restrict__ resid, int n,
             const int32_t mag = xs < 0 ? -xs : xs;
             int32_t lev = (mag + ((q * bias_num) >> 5)) / q;
             lev = min(lev, 32767);
+            if (thr && lev == 1 && i != 0 && (float)mag < thr_b) lev = 0;
             const int32_t sgn = (xs > 0) - (xs < 0);
             const int32_t dmag = (lev * q) & 0xFFFFFF;
             int32_t dq = sgn * (dmag >> shift);
@@ -126,7 +135,8 @@ __global__ void fwd_txq_kernel(const int32_t *__restrict__ resid, int n,
 
 extern "C" int fwd_txq(const void *resid, int n_blocks, int n, int m,
                        const void *Fv, const void *FhT, const void *tidx,
-                       const void *qdc, const void *qac, int shift,
+                       const void *qdc, const void *qac, const void *thr,
+                       int shift,
                        int bias_num, int lim, int float_floor, float rate_nz,
                        float rate_mag, void *levels, void *dq, void *dist,
                        void *rate, void *nnz, void *stream) {
@@ -136,7 +146,8 @@ extern "C" int fwd_txq(const void *resid, int n_blocks, int n, int m,
         kernel<<<n_blocks, THREADS, smem, (cudaStream_t)stream>>>(
             (const int32_t *)resid, n, m, (const float *)Fv,
             (const float *)FhT, (const int32_t *)tidx, (const int32_t *)qdc,
-            (const int32_t *)qac, shift, bias_num, lim, rate_nz, rate_mag,
+            (const int32_t *)qac, (const float *)thr, shift, bias_num, lim,
+            rate_nz, rate_mag,
             (int32_t *)levels, (int32_t *)dq, (float *)dist, (float *)rate,
             (int32_t *)nnz);
     }

@@ -25,11 +25,13 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 KERNELS = ("intra_pred", "fwd_txq", "inv_txfm", "deblock", "cdef_dir",
-           "cdef_filter", "wiener_solve", "wiener_lr")
+           "cdef_filter", "wiener_solve", "wiener_lr", "mc_pred", "me_fullpel")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-COUNTS = {k: 0 for k in KERNELS}
+# one counter per kernel, and "fwd_txq_thin" for fwd_txq's launches with
+# the level-1 thinning of the inter race
+COUNTS = {k: 0 for k in KERNELS + ("fwd_txq_thin",)}
 # nvcc's output of the last build of each kernel (ptxas: registers, spills)
 BUILD_LOGS: dict = {}
 _LIBS: dict = {}
@@ -39,8 +41,8 @@ _ci = ctypes.c_int
 _cf = ctypes.c_float
 ARGTYPES = {
     "intra_pred": [_vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _vp, _vp, _vp, _vp],
-    "fwd_txq": [_vp, _ci, _ci, _ci, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci,
-                _ci, _cf, _cf, _vp, _vp, _vp, _vp, _vp, _vp],
+    "fwd_txq": [_vp, _ci, _ci, _ci, _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci,
+                _ci, _ci, _cf, _cf, _vp, _vp, _vp, _vp, _vp, _vp],
     "inv_txfm": [_vp, _vp, _ci, _ci, _ci, _vp, _ci, _ci, _ci, _ci, _vp],
     "deblock_pass": [_vp, _vp, _ci, _ci, _ci, _ci, _vp, _vp, _vp, _ci, _ci,
                      _ci, _ci, _ci, _ci, _ci, _ci, _vp],
@@ -52,11 +54,15 @@ ARGTYPES = {
                                                           _vp],
     "wiener_lr": [_vp, _ci, _vp, _ci, _vp, _ci, _ci, _ci, _ci, _vp, _vp, _cf,
                   _cf, _vp, _vp, _vp],
+    "mc_pred": [_vp, _ci, _ci, _ci, _ci, _vp, _vp, _vp, _vp, _ci, _ci, _ci,
+                _ci, _ci, _vp, _vp, _vp],
+    "me_fullpel": [_vp, _ci, _vp, _ci, _ci, _ci, _vp, _vp, _vp],
 }
 _ENTRY = {"intra_pred": "intra_pred", "fwd_txq": "fwd_txq",
           "inv_txfm": "inv_txfm", "deblock": "deblock_pass",
           "cdef_dir": "cdef_dir", "cdef_filter": "cdef_filter",
-          "wiener_solve": "wiener_solve", "wiener_lr": "wiener_lr"}
+          "wiener_solve": "wiener_solve", "wiener_lr": "wiener_lr",
+          "mc_pred": "mc_pred", "me_fullpel": "me_fullpel"}
 
 
 def reset_counts() -> None:

@@ -6,14 +6,18 @@ partial superblocks at a frame's bottom (1080 = 16*64 + 56) are coded by
 the host block path; these maps give it a mode per 32x32 and 16x16 block
 and the 32 -> 16 split decision, so it runs no per-block RD trials.
 
+Also the full-pel motion search of the P-frame pass (me_fullpel, K10):
+quarter-resolution exhaustive search, then a full-resolution refinement,
+one motion vector per 32x32 block.
+
 The maps come from source edges (no reconstruction): every candidate mode
 is predicted by intra_pred (K1) and costed through the float-floor variant
 of fwd_txq (K2): fp32 transform, deadzone quantiser, tx-domain distortion
 and the level-magnitude rate model.
 
-The whole-frame RD maps, mode maps, motion search and the sharded
-analysis steps of the JAX module are not ported yet (ROADMAP queue 1,
-item 10).
+The whole-frame RD maps, mode maps, the host ME map (frame_me_map) and
+the sharded analysis steps of the JAX module are not ported yet (ROADMAP
+queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from rav1e_tpu_torch import kernels
 from rav1e_tpu_torch.ops import intra as ij
 from rav1e_tpu_torch.ops import transforms as tt
 from rav1e_tpu_torch.ops import transforms_np as tn
@@ -139,3 +144,93 @@ def frame_rd_maps(*_args, **_kw):
     """Whole-frame RD maps (intra frames that cannot take the wavefront)."""
     raise NotImplementedError(
         "device frame_rd_maps: ROADMAP queue 1 item 10 (off-path programs)")
+
+
+# -- motion estimation: hierarchical full search (K10) -------------------------
+#
+# Stage A searches +-ME_RANGE_PX at quarter resolution (4x4 sums, +-8 over
+# 8x8 quarter blocks: 289 offsets); stage B refines +-2 px at full
+# resolution around each block's stage-A winner (25 deltas).  Both take the
+# first minimum in (dy, dx) raster order, as argmin does; reference samples
+# outside the plane repeat its edge.
+
+ME_RANGE_PX = 32
+ME_RAD2 = 2
+
+
+def me_fullpel_plain(src: torch.Tensor, ref: torch.Tensor,
+                     n: int = 32) -> torch.Tensor:
+    """Plain version of K10: (H/n, W/n, 2) int32 full-pel MVs in pixels
+    for the n x n blocks of src (H, W) against ref (H, W)."""
+    Hh, Ww = src.shape
+    q = 4
+    Hq, Wq = Hh // q, Ww // q
+    s32 = src.to(torch.int32)
+    r32 = ref.to(torch.int32)
+    srcq = s32[: Hq * q, : Wq * q].reshape(Hq, q, Wq, q).sum((1, 3))
+    refq = r32[: Hq * q, : Wq * q].reshape(Hq, q, Wq, q).sum((1, 3))
+    nq = max(2, n // q)
+    rad = ME_RANGE_PX // q
+    pad_ref = torch.nn.functional.pad(refq[None, None].float(),
+                                      (rad, rad, rad, rad),
+                                      mode="replicate")[0, 0].to(torch.int32)
+    offs = [(dy, dx) for dy in range(-rad, rad + 1)
+            for dx in range(-rad, rad + 1)]
+    by, bx = Hq // nq, Wq // nq
+    costs = torch.stack([
+        (srcq - pad_ref[rad + dy : rad + dy + Hq, rad + dx : rad + dx + Wq]
+         ).abs().reshape(by, nq, bx, nq).sum((1, 3))
+        for dy, dx in offs])
+    offs_t = torch.as_tensor(offs, dtype=torch.int32, device=src.device) * q
+    mv_a = offs_t[costs.argmin(0)]  # (by, bx, 2) px
+    pad = ME_RANGE_PX + ME_RAD2
+    pad_full = torch.nn.functional.pad(r32[None, None].float(),
+                                       (pad, pad, pad, pad),
+                                       mode="replicate")[0, 0].to(torch.int32)
+    ar = torch.arange(n, device=src.device)
+    base_y = (torch.arange(by, device=src.device)[:, None] * n
+              + mv_a[..., 0] + pad)
+    base_x = (torch.arange(bx, device=src.device)[None, :] * n
+              + mv_a[..., 1] + pad)
+    src_b = s32.reshape(by, n, bx, n).permute(0, 2, 1, 3)
+    deltas = [(dy, dx) for dy in range(-ME_RAD2, ME_RAD2 + 1)
+              for dx in range(-ME_RAD2, ME_RAD2 + 1)]
+    costs2 = []
+    for dy, dx in deltas:
+        yy = (base_y[..., None] + dy + ar).long()
+        xx = (base_x[..., None] + dx + ar).long()
+        win = pad_full[yy[..., :, None], xx[..., None, :]]
+        costs2.append((src_b - win).abs().sum((-1, -2)))
+    d_t = torch.as_tensor(deltas, dtype=torch.int32, device=src.device)
+    return mv_a + d_t[torch.stack(costs2).argmin(0)]
+
+
+def me_fullpel(src: torch.Tensor, ref: torch.Tensor,
+               n: int = 32) -> torch.Tensor:
+    """Full-pel motion map of the n x n blocks: (H/n, W/n, 2) int32 in
+    pixels (K10).  src, ref: (H, W) planes of the same shape, H and W
+    multiples of 64 (uint8 on the card)."""
+    if src.device.type == "cpu":
+        return me_fullpel_plain(src, ref, n)
+    if n != 32 or src.dtype != torch.uint8 or ref.dtype != torch.uint8:
+        raise ValueError("K10 searches 32x32 blocks of uint8 planes")
+    Hh, Ww = src.shape
+    s = src if src.stride(1) == 1 else src.contiguous()
+    r = ref if ref.stride(1) == 1 else ref.contiguous()
+    dev = src.device
+    quarter = torch.empty((2, Hh // 4, Ww // 4), dtype=torch.int32,
+                          device=dev)
+    mv = torch.empty((Hh // n, Ww // n, 2), dtype=torch.int32, device=dev)
+    fn = kernels.lib("me_fullpel").me_fullpel
+    kernels.COUNTS["me_fullpel"] += 1
+    kernels.check(fn(s.data_ptr(), s.stride(0), r.data_ptr(), r.stride(0),
+                     Hh, Ww, quarter.data_ptr(), mv.data_ptr(),
+                     kernels.stream_ptr(s)), "me_fullpel")
+    return mv
+
+
+def frame_me_map(*_args, **_kw):
+    """Host wrapper of the ME map for the host inter search paths."""
+    raise NotImplementedError(
+        "frame_me_map (host inter search, multi-reference and pyramid "
+        "frames): ROADMAP queue 1 item 10")

@@ -370,21 +370,20 @@ class IntraFrameEncoder:
         self._py_cache: dict = {}
         self._split_cache: dict = {}
         # native per-block coder (C++ hot loop); keyframe leaf blocks and
-        # the inter wavefront's cache/replay passes
+        # the inter wavefront's cache/replay passes.  A library that cannot
+        # be built or loaded raises: the Python walk is another encoder
+        # path, not a stand-in for this one
         self._nbc = None
         if self.use_native and self._is420 and (
                 type(self) is IntraFrameEncoder
                 or getattr(self, "wf_inter", False)):
-            try:
-                from rav1e_tpu_torch.ec.native_block import block_coder_for
+            from rav1e_tpu_torch.ec.native_block import block_coder_for
 
-                self._nbc = block_coder_for(self)
-            except Exception as e:
-                import logging
-
-                logging.getLogger("rav1e_tpu_torch").warning(
-                    "native block coder unavailable (%s); python path", e
-                )
+            self._nbc = block_coder_for(self)
+            if self._nbc is None:
+                raise RuntimeError(
+                    "the native block coder (native/block_intra.cc) is "
+                    "missing from the port's native library")
         self._wf_launched = None
         if launch and self._wf_capable() and self._wavefront_eligible():
             if getattr(self, "wavefront_mesh", None) is not None:

@@ -284,9 +284,113 @@ class FrameEncoder:
     def encode_inter(self, frame, q_idx, order_hint, ref_slots: dict,
                      show_frame: bool, refresh_flags: int,
                      imp_scale=None, switch: bool = False) -> bytes:
-        """General inter frame (not ported yet)."""
-        raise NotImplementedError(
-            "inter frames: ROADMAP queue 1 item 8 (inter slice)")
+        """Inter frame predicting from LAST.  ref_slots: {ref_id: slot};
+        LAST doubles as the primary ref (CDF inheritance).  The pyramid's
+        BWDREF/ALTREF/GOLDEN/LAST2 references (low_latency=False,
+        multiref) are not ported."""
+        from rav1e_tpu_torch.models import mv_pred as mvp
+        from rav1e_tpu_torch.models.inter_frame import InterFrameEncoder
+
+        if set(ref_slots) != {mvp.LAST_FRAME}:
+            raise NotImplementedError(
+                "inter frames with references beyond LAST (pyramid, "
+                "multiref): ROADMAP queue 1 item 10")
+        q = self.cfg.quantizer if q_idx is None else q_idx
+        q = int(np.clip(q, 1, 255))
+        lf = self.lf_levels_for(q)
+        damping = self.cdef_damping_for(q)
+        last_slot = ref_slots[mvp.LAST_FRAME]
+        refs = {rid: self.slots[s_]["recon"] for rid, s_ in ref_slots.items()}
+        fe = InterFrameEncoder(
+            self.cfg.width,
+            self.cfg.height,
+            q_idx=q,
+            refs=refs,
+            bit_depth=self.cfg.bit_depth,
+            adapt_cdf=True,
+            speed=self.cfg.speed_settings.speed,
+            speed_settings=self.cfg.speed_settings,
+            init_cdf=(None if (self.cfg.error_resilient or switch)
+                      else self.slots[last_slot]["cdf"]),
+            lf_levels=lf,
+            cdef_damping=damping,
+            tile_cols_log2=self.tile_cols_log2,
+            tile_rows_log2=self.tile_rows_log2,
+            tune=getattr(self.cfg, "tune", "psnr"),
+            chroma_sampling=tuple(self.cfg.chroma_sampling),
+            device=self.device,
+        )
+        fe.lrf = self.seq.enable_restoration
+        fe._imp_scale = imp_scale
+
+        def rel_dist(a, b):  # 7-bit order-hint wraparound compare
+            return ((a - b + 64) & 127) - 64
+
+        fe.sign_bias = {
+            rid: 1 if rel_dist(self.slots[s_]["hint"], order_hint & 0x7F) > 0
+            else 0
+            for rid, s_ in ref_slots.items()
+        }
+        # compound prediction needs refs on both temporal sides
+        fe.reference_select = len(set(fe.sign_bias.values())) > 1
+        planes = [p.window() for p in frame.planes]
+        tile, recon = fe.encode(planes)
+        self.stats.merge(fe.stats)
+        self.last_recon = recon
+        self.ref_cdf = fe.cdf
+
+        # ref name -> slot map for the header (unused names point at LAST)
+        idx = [last_slot] * 7
+        for rid, s_ in ref_slots.items():
+            idx[rid - 1] = s_
+        fp = FrameParams(
+            frame_type=SWITCH_FRAME if switch else INTER_FRAME,
+            show_frame=show_frame,
+            showable_frame=not show_frame,
+            base_q_idx=q,
+            disable_cdf_update=False,
+            order_hint=order_hint & 0x7F,
+            loop_filter_levels=fe.lf_levels,
+            interp_filter=fe.interp_filter,
+            tile_cols_log2=self.tile_cols_log2,
+            tile_rows_log2=self.tile_rows_log2,
+            refresh_frame_flags=refresh_flags,
+            ref_frame_idx=tuple(idx),
+            error_resilient=self.cfg.error_resilient or switch,
+            ref_order_hints=tuple(
+                self.slots.get(i, {"hint": 0})["hint"] for i in range(8)
+            ),
+            # CDFs (and filter deltas) inherit from LAST = ref_frame_idx[0];
+            # error-resilient frames must reset to defaults instead
+            primary_ref_frame=(PRIMARY_REF_NONE
+                               if (self.cfg.error_resilient or switch) else 0),
+            reference_select=fe.reference_select,
+        )
+        if fe.cdef_strengths is not None:
+            fp.cdef_damping = damping
+            sb = getattr(fe, "cdef_sb", None)
+            if sb is not None:
+                fp.cdef_bits, fp.cdef_y_strengths, fp.cdef_uv_strengths = \
+                    sb[0], sb[1], sb[2]
+            else:
+                fp.cdef_bits = 0
+                fp.cdef_y_strengths = (fe.cdef_strengths[0],)
+                fp.cdef_uv_strengths = (fe.cdef_strengths[1],)
+        if fe.lrf:
+            # SWITCHABLE luma; chroma planes RESTORE_WIENER when engaged
+            fp.frame_restoration_type = tuple(getattr(fe, "lr_types",
+                                                      (1, 0, 0)))
+            fp.lr_unit_shift = 0
+            fp.lr_uv_shift = 1 if any(
+                t for t in fp.frame_restoration_type[1:]) else 0
+        out = temporal_delimiter()
+        out += write_frame_obu(self.seq, fp, tile)
+        for s_ in range(8):
+            if refresh_flags & (1 << s_):
+                self.slots[s_] = {"recon": recon, "hint": order_hint & 0x7F,
+                                  "cdf": fe.cdf}
+        self.frame_count += 1
+        return out
 
     def show_existing(self, slot: int) -> bytes:
         """A temporal unit that displays an already-decoded reference."""

@@ -1,7 +1,8 @@
-"""Wavefront device encode of key frames, in PyTorch on the GPU.
+"""Wavefront device encode of key frames and P frames, in PyTorch on the GPU.
 
-Counterpart of rav1e_tpu/models/wavefront.py (the keyframe pass:
-inter_on=False, no CFL, no 8x8 split).  rav1e walks superblocks serially
+Counterpart of rav1e_tpu/models/wavefront.py (no CFL, no 8x8 split): the
+keyframe pass, and with inter_on the P-frame pass of single-LAST-reference
+frames.  rav1e walks superblocks serially
 because intra prediction consumes reconstructed neighbours and the entropy
 coder is adaptive.  Here the two concerns are split:
 
@@ -13,14 +14,20 @@ coder is adaptive.  Here the two concerns are split:
      13-mode tx-domain RD race and the 5-type luma tx race (K2), the uv
      race, bit-exact inverse transforms (K3) and in-carry reconstruction,
      the NONE-vs-SPLIT decisions at 32 and 16 and the 64x64 root trial.
+     With inter_on, phase A runs before the scan: the full-pel motion
+     search (K10), 8/8/6 motion vector candidates a block at the 64, 32
+     and 16 levels, each raced through subpel MC (K9) and the forward
+     transform with level-1 thinning (K2), and each level's winner coded
+     on all three planes with a skip-vs-code RD; the scan then races every
+     leaf's intra result against its inter winner.
   2. HOST: the adaptive MSAC entropy pass replays the device-chosen
      symbols through the C++ coder (native/block_intra.cc BlockCache) in
      decode order; reconstruction is not recomputed.
 
 The pass takes the same packed upload vector as the JAX pass and emits the
-same int16 records (1688 words per lane, rec_width) that the C++ walker
-consumes; the JAX package's int8 transport with escape refetch is not
-carried over.
+same int16 records (1688 words per lane, 1772 with inter_on; rec_width)
+that the C++ walker consumes; the JAX package's int8 transport with escape
+refetch is not carried over.
 """
 
 from __future__ import annotations
@@ -30,9 +37,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from rav1e_tpu_torch.models import device_pipeline as dp
 from rav1e_tpu_torch.ops import intra as ij
+from rav1e_tpu_torch.ops import mc
 from rav1e_tpu_torch.ops import transforms as tt
 from rav1e_tpu_torch.ops import transforms_np as tn
+from rav1e_tpu_torch.ops.quantize_np import tx_scale
 
 # tx-domain sse -> pixel sse for the mode-RD argmin
 DIST_SCALE = 0.0164
@@ -217,6 +227,17 @@ UV_CANDS = ((0, tn.DCT_DCT, 0), (1, tn.ADST_DCT, 2), (2, tn.DCT_ADST, 3),
             (11, tn.DCT_ADST, 3), (12, tn.ADST_ADST, 1))
 _MAT_TYPES = (tn.DCT_DCT, tn.ADST_ADST, tn.ADST_DCT, tn.DCT_ADST, tn.IDTX)
 FIELDS = ("mode", "delta", "tt", "skip", "au", "av", "uv")
+# the inter pass's records add the MVs as (high, low) 6-bit nibble pairs
+MV_FIELDS = ("mvrh", "mvrl", "mvch", "mvcl")
+
+# inter pass constants: candidate counts per level, the mv-coding bit
+# overhead added to every inter candidate on top of its per-candidate
+# bias (is_inter + ref + mode symbols), and the rate in bits a lone +-1
+# AC level is taken to cost (the host encoder's _thin_rate_bits)
+NCAND32 = 8
+NCAND64 = 8
+INTER_MODE_BITS = 5.0
+THIN_RATE = 4.0
 
 
 def build_pass(Hp: int, Wp: int, K: int, B: int, bd: int, cfl_on: bool,
@@ -245,24 +266,23 @@ def rec_width(inter_on: bool) -> int:
 
 
 class WavefrontPass(torch.nn.Module):
-    """The keyframe wavefront pass (counterpart of wavefront.py
-    _make_pass): a loop over SB anti-diagonals, each step encoding a batch
-    of lanes (one SB each) through the 64x64 root trial, the 32x32
-    quadrants and their 16x16 leaves, with the recon carried in SB tiles.
+    """The wavefront pass (counterpart of wavefront.py _make_pass): a loop
+    over SB anti-diagonals, each step encoding a batch of lanes (one SB
+    each) through the 64x64 root trial, the 32x32 quadrants and their
+    16x16 leaves, with the recon carried in SB tiles.  With inter_on,
+    phase A (_inter_phase) first decides every block's inter candidate at
+    each level, and every leaf races its intra result against it.
 
-    Its math runs in the four kernels: intra_pred (K1) for every
-    prediction, fwd_txq (K2) for every forward transform with its
-    quantiser and RD sums, inv_txfm (K3) for every reconstruction; the glue
-    here is small gathers, selects and sums.  The constant matrices are
-    the module's buffers."""
+    Its math runs in the kernels: intra_pred (K1) for every prediction,
+    fwd_txq (K2) for every forward transform with its quantiser and RD
+    sums, inv_txfm (K3) for every reconstruction, and in phase A
+    me_fullpel (K10) and mc_pred (K9); the glue here is small gathers,
+    selects and sums.  The constant matrices are the module's buffers."""
 
     def __init__(self, Hp, Wp, K, B, bd, cfl_on, tx_search, fine_dir,
                  mode_mask, mi_cols, mi_rows, allow_split, allow_split8,
                  uv_search, allow_n64, inter_on, device="cuda"):
         super().__init__()
-        if inter_on:
-            raise NotImplementedError(
-                "inter wavefront: ROADMAP queue 1 item 8 (inter slice)")
         if cfl_on:
             raise NotImplementedError(
                 "CFL in the wavefront (speed <= 5): ROADMAP queue 1 item 10")
@@ -274,6 +294,8 @@ class WavefrontPass(torch.nn.Module):
         self.tx_search, self.fine_dir = tx_search, fine_dir
         self.allow_split, self.uv_search = allow_split, uv_search
         self.allow_n64 = allow_n64
+        self.inter_on = inter_on
+        self.fields = FIELDS + (MV_FIELDS if inter_on else ())
         self.maxval = (1 << bd) - 1
         self.base = 1 << (bd - 1)
         self.device = torch.device(device)
@@ -309,6 +331,11 @@ class WavefrontPass(torch.nn.Module):
         self.uv_types = torch.as_tensor([c[1] for c in UV_CANDS], **i32)
         self.uv_keys = torch.as_tensor([c[2] for c in UV_CANDS], **i32)
         self.mode64 = torch.as_tensor([0, 1, 2, 9, 10, 11, 12], **i32)
+        if inter_on:
+            # tx_alpha of each inter level's luma transform (64: the coded
+            # 32x32 corner) for the thinning threshold
+            self.tx_alpha = {n: tn.tx_alpha(min(n, 32), min(n, 32), bd)
+                             for n in (64, 32, 16)}
 
     # -- building blocks ----------------------------------------------------
 
@@ -401,11 +428,12 @@ class WavefrontPass(torch.nn.Module):
                 sel(rate))
 
     def encode_leaf(self, ctxY, ctxU, ctxV, sYt, sUt, sVt, ly, lx, n, av4,
-                    lam, qdc, qac, allow_z1, tabs):
+                    lam, qdc, qac, allow_z1, tabs, inter=None):
         """One batch of n x n intra leaves at local offset (ly, lx) inside
-        the SB.  Returns the recon blocks (Y, U, V), the block fields, the
-        levels and the RD cost; the caller writes the recon into the
-        context."""
+        the SB, raced against the lanes' inter winners (inter: per-lane
+        _inter_level outputs) in the inter pass.  Returns the recon blocks
+        (Y, U, V), the block fields, the levels and the RD cost; the caller
+        writes the recon into the context."""
         bd = self.bd
         shift = 1 if n == 32 else 0
         ha = av4[:, 0] > 0
@@ -487,10 +515,39 @@ class WavefrontPass(torch.nn.Module):
                    av=zi, uv=uv_mode)
         levels = (lv.to(torch.int16), lc[:, 0].to(torch.int16),
                   lc[:, 1].to(torch.int16))
-        return (recon_y, recon_c[:, 0], recon_c[:, 1]), out, levels, cost
+        return self._race_inter((recon_y, recon_c[:, 0], recon_c[:, 1]), out,
+                                levels, cost, inter)
+
+    def _race_inter(self, recon, out, levels, cost, inter):
+        """The intra-vs-inter race of a leaf (wavefront.py:849-886): where
+        the lane's inter winner costs less, its recon, levels and fields
+        (mode 13, delta 0, DCT_DCT, no CFL, DC chroma, its skip and MV)
+        replace the intra ones.  Adds the MV nibble fields in the inter
+        pass; a keyframe pass (inter None) returns its inputs."""
+        if not self.inter_on:
+            return recon, out, levels, cost
+        isel = inter["cost"] < cost
+        s3 = isel[:, None, None]
+        recon = tuple(torch.where(s3, inter[k], r)
+                      for k, r in zip(("recY", "recU", "recV"), recon))
+        levels = tuple(torch.where(s3, inter[k], v)
+                       for k, v in zip(("lvY", "lvU", "lvV"), levels))
+        z = torch.zeros_like(out["mode"])
+        out = dict(mode=torch.where(isel, 13, out["mode"]),
+                   delta=torch.where(isel, z, out["delta"]),
+                   tt=torch.where(isel, 1, out["tt"]),
+                   skip=torch.where(isel, inter["skip"], out["skip"]),
+                   au=torch.where(isel, z, out["au"]),
+                   av=torch.where(isel, z, out["av"]),
+                   uv=torch.where(isel, z, out["uv"]))
+        for nm, k in (("mvr", "mvr"), ("mvc", "mvc")):
+            mv = torch.where(isel, inter[k], 0)
+            out[nm + "h"] = mv >> 6
+            out[nm + "l"] = mv - ((mv >> 6) << 6)
+        return recon, out, levels, torch.minimum(cost, inter["cost"])
 
     def encode_leaf64(self, ctxY, ctxU, ctxV, sYt, sUt, sVt, ha, hl, lam,
-                      qdc, qac):
+                      qdc, qac, inter=None):
         """Whole-SB 64x64 intra trial (PARTITION_NONE at the SB root).
         Candidates DC/V/H/SMOOTH*/PAETH (none reads past the plain
         above/left edges); luma TX_64X64 keeps the top-left 32x32
@@ -538,7 +595,8 @@ class WavefrontPass(torch.nn.Module):
                    au=zi, av=zi, uv=zi)
         levels = (lv.to(torch.int16), lv_c[0].to(torch.int16),
                   lv_c[1].to(torch.int16))
-        return (recon_y, rec_c[0], rec_c[1]), out, levels, cost
+        return self._race_inter((recon_y, rec_c[0], rec_c[1]), out, levels,
+                                cost, inter)
 
     def compose_ctx(self, t, r, c, n, ext):
         """Context tile (B, n+1, n+ext+1) from the tiled plane t (R,C,n,n):
@@ -560,13 +618,235 @@ class WavefrontPass(torch.nn.Module):
         ctx[:, 1:, 1:n + 1] = own
         return ctx
 
+    # -- phase A of the inter pass ------------------------------------------
+
+    def _inter_candidates(self, me8):
+        """Per-block MV candidate sets and rate biases from the in-pass ME
+        map (wavefront.py:339 _inter_candidates_dev).  me8: (R2, C2, 2)
+        int32 full-pel MVs in 1/8-pel units.  Returns (c32 (R*C*4, 8, 2),
+        b32 (R*C*4, 8), c64 (R*C, 8, 2), b64 (R*C, 8)) in _grid_blocks
+        order; the MVs even (1/4-pel precision) and clipped to +-MV_LIMIT."""
+        R, C = self.R, self.C
+        lim = mc.MV_LIMIT
+        left = torch.cat([me8[:, :1], me8[:, :-1]], 1)
+        above = torch.cat([me8[:1], me8[:-1]], 0)
+        d = lambda dy, dx: me8 + torch.as_tensor((dy, dx), dtype=torch.int32,
+                                                 device=me8.device)
+        c32 = torch.stack([torch.zeros_like(me8), me8, d(-2, 0), d(2, 0),
+                           d(0, -2), d(0, 2), left, above], 2)
+        c32 = torch.clamp(c32, -lim, lim)
+        c32 = c32 + (c32 & 1)
+        lg = lambda v: torch.log2(1.0 + torch.abs(v).to(torch.float32))
+        b32 = (6.0 + lg(c32[..., 0] - left[..., None, 0])
+               + lg(c32[..., 1] - left[..., None, 1]))
+        b32[..., 0] = 2.0  # zero -> GLOBAL-ish
+        b32[..., 6] = 4.0  # left -> NEAREST/NEAR-ish
+        b32[..., 7] = 4.0  # above
+        q4 = me8.reshape(R, 2, C, 2, 2).permute(0, 2, 1, 3, 4).reshape(
+            R, C, 4, 2)
+        # float mean truncated toward zero (jnp astype), then even
+        mean = (q4.to(torch.float32).mean(2) / 2).to(torch.int32) * 2
+        m = lambda dy, dx: mean + torch.as_tensor((dy, dx), dtype=torch.int32,
+                                                  device=me8.device)
+        c64 = torch.stack([torch.zeros_like(mean), q4[:, :, 0], q4[:, :, 1],
+                           q4[:, :, 2], q4[:, :, 3], mean, m(0, 2), m(2, 0)],
+                          2)
+        c64 = torch.clamp(c64, -lim, lim)
+        c64 = c64 + (c64 & 1)
+        b64 = 6.0 + lg(c64[..., 0]) + lg(c64[..., 1])
+        b64[..., 0] = 2.0
+        c32q = c32.reshape(R, 2, C, 2, NCAND32, 2).permute(
+            0, 2, 1, 3, 4, 5).reshape(R * C * 4, NCAND32, 2)
+        b32q = b32.reshape(R, 2, C, 2, NCAND32).permute(
+            0, 2, 1, 3, 4).reshape(R * C * 4, NCAND32)
+        return (c32q.contiguous(), b32q.contiguous(),
+                c64.reshape(R * C, NCAND64, 2), b64.reshape(R * C, NCAND64))
+
+    def _grid_blocks(self, n, device):
+        """(py, px) int32 plane coordinates of the n-blocks of every SB in
+        (R, C, quad[, leaf]) order (the _QOFF/_SOFF z-order)."""
+        R, C = self.R, self.C
+        if n == 64:
+            idx = np.arange(R * C)
+            py, px = (idx // C) * 64, (idx % C) * 64
+        elif n == 32:
+            idx = np.arange(R * C * 4)
+            q = idx % 4
+            py = (idx // (C * 4)) * 64 + np.asarray(_QOFF)[q, 0]
+            px = ((idx // 4) % C) * 64 + np.asarray(_QOFF)[q, 1]
+        else:  # 16: (R, C, quad, leaf)
+            idx = np.arange(R * C * 16)
+            sl, q = idx % 4, (idx // 4) % 4
+            py = (idx // (C * 16)) * 64 + np.asarray(_QOFF)[q, 0] \
+                + np.asarray(_SOFF)[sl, 0]
+            px = ((idx // 16) % C) * 64 + np.asarray(_QOFF)[q, 1] \
+                + np.asarray(_SOFF)[sl, 1]
+        i32 = dict(dtype=torch.int32, device=device)
+        return torch.as_tensor(py, **i32), torch.as_tensor(px, **i32)
+
+    def _src_blocks(self, plane, n, sub):
+        """(N, n >> sub, n >> sub) source blocks in _grid_blocks order."""
+        R, C = self.R, self.C
+        n2 = n >> sub
+        if n == 64:
+            b = plane.reshape(R, n2, C, n2).permute(0, 2, 1, 3)
+        elif n == 32:
+            b = plane.reshape(R, 2, n2, C, 2, n2).permute(0, 3, 1, 4, 2, 5)
+        else:
+            b = plane.reshape(R, 2, 2, n2, C, 2, 2, n2).permute(
+                0, 4, 1, 5, 2, 6, 3, 7)
+        return b.reshape(-1, n2, n2)
+
+    @staticmethod
+    def _sse_exact(a, b):
+        """Per-block sum of squared differences, summed exactly in int64
+        and rounded to float32 once."""
+        d = (a - b).to(torch.int64)
+        return (d * d).sum((-1, -2)).to(torch.float32)
+
+    def _inter_level(self, n, refs, srcs, cands_mv, cands_bits, lam_f, qdc,
+                     qac):
+        """Candidate race + winner coding of every n-block of the frame
+        (wavefront.py:416 _inter_level).  refs: padded Y, U, V planes;
+        srcs: Y, U, V int32 source planes; cands_mv (N, Cn, 2) luma
+        1/8-pel, cands_bits (N, Cn) rate biases, lam_f/qdc/qac (N,).  All
+        candidates of the level race in one K9 launch and one K2 launch
+        (with level-1 thinning); the winner's luma comes from the race,
+        its chroma from one K9 launch a plane and one K2 (thinned) and one
+        K3 launch for both planes.  Returns a dict of per-block outputs in
+        _grid_blocks order."""
+        bd = self.bd
+        dev = lam_f.device
+        N, Cn = cands_mv.shape[:2]
+        py, px = self._grid_blocks(n, dev)
+        src_b = self._src_blocks(srcs[0], n, 0)
+        n2 = n >> 1
+        shift, shift_c = tx_scale(n, n), tx_scale(n2, n2)
+        qacf = qac.to(torch.float32)
+        thr1 = (lam_f * THIN_RATE / (self.tx_alpha[n] * qacf) + qac) / 2.0
+        rep = lambda a: a.repeat_interleave(Cn, 0)
+        pred_all = mc.mc_block_batch(
+            refs[0], mc.MC_MARGIN, rep(px), rep(py),
+            cands_mv[..., 0].reshape(-1), cands_mv[..., 1].reshape(-1), n, n,
+            0, 0, bd).reshape(
+                N, Cn, n, n)
+        Fv, FhT = self.mats[n]
+        ex = lambda v: v[:, None].expand(N, Cn)
+        lv_all, dq_all, txd, rate_all = tt.fwd_txq(
+            src_b[:, None] - pred_all, Fv, FhT, ex(qdc), ex(qac), shift,
+            bit_depth=bd, thr=ex(thr1))
+        costs = txd * DIST_SCALE + lam_f[:, None] * (rate_all + cands_bits)
+        ci = torch.argmin(costs, dim=1)
+        mv = self._pick(cands_mv, ci)
+        mv_bits = self._pick(cands_bits, ci)
+        mvr, mvc = mv[:, 0].contiguous(), mv[:, 1].contiguous()
+        pred, lv, dq, rate = (self._pick(pred_all, ci), self._pick(lv_all, ci),
+                              self._pick(dq_all, ci), self._pick(rate_all, ci))
+        if n == 64:
+            dq64 = torch.zeros((N, 64, 64), dtype=torch.int32, device=dev)
+            dq64[:, :32, :32] = dq
+            dq = dq64
+        recon = torch.clamp(pred + tt.inv_txfm(dq, tn.DCT_DCT, bd), 0,
+                            self.maxval)
+        pred_c = torch.stack([mc.mc_block_batch(
+            refs[p], mc.MC_MARGIN, px >> 1, py >> 1, mvr, mvc, n2, n2, 1, 1, bd)
+            for p in (1, 2)], 1)
+        src_c = torch.stack([self._src_blocks(srcs[p], n, 1) for p in (1, 2)],
+                            1)
+        FvC, FhTC = self.mats[n2]
+        ex2 = lambda v: v[:, None].expand(N, 2)
+        lv_c, dq_c, _t, rate_c = tt.fwd_txq(
+            src_c - pred_c, FvC, FhTC, ex2(qdc), ex2(qac), shift_c,
+            bit_depth=bd, thr=ex2(thr1))
+        recon_c = torch.clamp(pred_c + tt.inv_txfm(dq_c, tn.DCT_DCT, bd), 0,
+                              self.maxval)
+        # skip-vs-code RD over all three planes (host _block analog)
+        sse = self._sse_exact
+        dist_code = (sse(recon, src_b) + sse(recon_c[:, 0], src_c[:, 0])
+                     + sse(recon_c[:, 1], src_c[:, 1]))
+        dist_skip = (sse(pred, src_b) + sse(pred_c[:, 0], src_c[:, 0])
+                     + sse(pred_c[:, 1], src_c[:, 1]))
+        rate = rate + rate_c[:, 0] + rate_c[:, 1]
+        has = (lv != 0).any(-1).any(-1) | (lv_c != 0).flatten(1).any(1)
+        skip = ~has | (dist_skip + lam_f * 2.0 < dist_code + lam_f * rate)
+        s3 = skip[:, None, None]
+        s4 = skip[:, None, None, None]
+        over = mv_bits + INTER_MODE_BITS
+        cost = torch.where(skip, dist_skip + lam_f * (2.0 + over),
+                           dist_code + lam_f * (rate + over))
+        lv_c = torch.where(s4, torch.zeros_like(lv_c), lv_c).to(torch.int16)
+        recon_c = torch.where(s4, pred_c, recon_c)
+        return dict(cost=cost, skip=skip, mvr=mvr, mvc=mvc,
+                    recY=torch.where(s3, pred, recon),
+                    recU=recon_c[:, 0], recV=recon_c[:, 1],
+                    lvY=torch.where(s3, torch.zeros_like(lv), lv).to(
+                        torch.int16),
+                    lvU=lv_c[:, 0], lvV=lv_c[:, 1])
+
+    def _inter_phase(self, upload, srcs, srcY8, params, o, ro):
+        """Phase A of the inter pass (wavefront.py:1032-1096): the per-32
+        lambda/quantiser grids from the parameter vector at offset o, the
+        padded reference planes at byte ro of the upload, the in-pass ME
+        (K10), the
+        candidates, and the three levels' races.  Returns (i64, i32, i16)
+        dicts shaped (R, C[, 4[, 4]], ...) and the ME map in 1/8 pel."""
+        R, C, Hp, Wp = self.R, self.C, self.Hp, self.Wp
+        RC4 = R * C * 4
+        lam32 = params[o : o + RC4]
+        qdc32 = params[o + RC4 : o + 2 * RC4].to(torch.int32)
+        qac32 = params[o + 2 * RC4 : o + 3 * RC4].to(torch.int32)
+        M = mc.MC_MARGIN
+        HpM, WpM = Hp + 2 * M, Wp + 2 * M
+        HcM, WcM = (Hp >> 1) + 2 * M, (Wp >> 1) + 2 * M
+        refYp = upload[ro : ro + HpM * WpM].reshape(HpM, WpM)
+        ro += HpM * WpM
+        refUp = upload[ro : ro + HcM * WcM].reshape(HcM, WcM)
+        ro += HcM * WcM
+        refVp = upload[ro : ro + HcM * WcM].reshape(HcM, WcM)
+        refs = (refYp, refUp, refVp)
+        core = refYp[M : M + Hp, M : M + Wp]
+        me8 = dp.me_fullpel(srcY8, core, 32) * 8  # (R2, C2, 2)
+        cand32, cbits32, cand64, cbits64 = self._inter_candidates(me8)
+        lam64 = lam32.reshape(-1, 4).mean(1)
+        qdc64 = qdc32.reshape(-1, 4)[:, 0]
+        qac64 = qac32.reshape(-1, 4)[:, 0]
+        i64 = self._inter_level(64, refs, srcs, cand64, cbits64, lam64, qdc64,
+                                qac64)
+        i32 = self._inter_level(32, refs, srcs, cand32, cbits32, lam32, qdc32,
+                                qac32)
+        # 16-level candidates from the 32 winner: winner, zero and the
+        # quarter-pel nudges (6 instead of 12 races)
+        w32 = torch.stack([i32["mvr"], i32["mvc"]], -1)[:, None, :]
+        nudges = torch.as_tensor(((0, 0), (-2, 0), (2, 0), (0, -2), (0, 2)),
+                                 dtype=torch.int32, device=w32.device)
+        cand16 = torch.cat([torch.zeros_like(w32), w32 + nudges[None]], 1)
+        cand16 = torch.clamp(cand16, -mc.MV_LIMIT, mc.MV_LIMIT)
+        cand16 = cand16 + (cand16 & 1)
+        cbits16 = torch.as_tensor([2.0, 4.0, 7.0, 7.0, 7.0, 7.0],
+                                  device=w32.device).expand(cand16.shape[:2])
+        rep4 = lambda a: a.repeat_interleave(4, 0)
+        i16 = self._inter_level(16, refs, srcs, rep4(cand16), rep4(cbits16),
+                                rep4(lam32), rep4(qdc32), rep4(qac32))
+        shape = lambda d, lead: {k: v.reshape(lead + v.shape[1:])
+                                 for k, v in d.items()}
+        return (shape(i64, (R, C)), shape(i32, (R, C, 4)),
+                shape(i16, (R, C, 4, 4)), me8)
+
     # -- the pass -----------------------------------------------------------
 
     def forward(self, upload, sbr, sbc, valid, avail, avail8, allow):
         """upload: the packed uint8 vector the JAX pass takes — src Y/U/V
         bytes, then the float32 parameter vector (lambda/quantiser grids +
         CDF-derived mode-bit tables).  Returns the int16 records
-        (K, 4, B, rec_width) and the uint8 recon planes (Y, U, V)."""
+        (K, 4, B, rec_width) and the uint8 recon planes (Y, U, V); the
+        inter pass adds the band tail (wavefront.py:1382-1395): the ME map
+        (R2, C2, 2) in 1/8 pel, then per level 64/32/16 the inter winners'
+        costs (R, C[, 4[, 4]]) float32 and MVs (..., 2), as int16 MVs.
+
+        The inter pass's upload continues after the keyframe parameters
+        with the per-32 lambda/dc_q/ac_q grids (R*C*4 each, quadrant
+        order) and then the edge-padded reference Y, U, V bytes
+        (_inter_upload)."""
         del avail8  # 8x8 leaves are off in this pass
         Hp, Wp, K, B, R, C = self.Hp, self.Wp, self.K, self.B, self.R, self.C
         nY = Hp * Wp
@@ -576,7 +856,7 @@ class WavefrontPass(torch.nn.Module):
         srcV = upload[nY + nC : nY + 2 * nC].reshape(Hp >> 1, Wp >> 1).to(
             torch.int32)
         KB4 = K * B * 4
-        plen = 3 * KB4 + 300
+        plen = 3 * KB4 + 300 + (3 * R * C * 4 if self.inter_on else 0)
         params = upload[nY + 2 * nC : nY + 2 * nC + 4 * plen].view(
             torch.float32)
         o = 0
@@ -593,6 +873,12 @@ class WavefrontPass(torch.nn.Module):
         o += 182 + 8 + 96
         bits_angle = params[o : o + 8]
         tabs = (bits_uv14, None, None, bits_angle)
+        if self.inter_on:
+            # phase A: every inter block of every level, fully batched (MC
+            # reads the reference, never the recon carry)
+            i64, i32, i16, me8 = self._inter_phase(
+                upload, (srcY, srcU, srcV), upload[:nY].reshape(Hp, Wp),
+                params, o + 8, nY + 2 * nC + 4 * plen)
 
         dev = upload.device
         tY = torch.zeros((R, C, 64, 64), dtype=torch.int32, device=dev)
@@ -614,15 +900,20 @@ class WavefrontPass(torch.nn.Module):
             rcl = torch.clamp(sbr_k, 0, R - 1)
             ccl = torch.clamp(sbc_k, 0, C - 1)
             sYt, sUt, sVt = srcYt[rcl, ccl], srcUt[rcl, ccl], srcVt[rcl, ccl]
+            lane = lambda d, *ix: {k: v[(rcl, ccl) + ix]
+                                   for k, v in d.items()}
             if self.allow_n64:
                 # whole-SB 64x64 trial from the same pre-quad context
                 r64 = self.encode_leaf64(
                     ctxY, ctxU, ctxV, sYt, sUt, sVt, av_k[:, 0, 0, 0] > 0,
                     av_k[:, 0, 0, 1] > 0, lam_k[:, 0], qdc_k[:, 0],
-                    qac_k[:, 0])
+                    qac_k[:, 0], inter=lane(i64) if self.inter_on else None)
             quads = [self._quad(qi, ctxY, ctxU, ctxV, sYt, sUt, sVt,
                                 av_k[:, qi], lam_k[:, qi], qdc_k[:, qi],
-                                qac_k[:, qi], allow_k, tabs, part_bits)
+                                qac_k[:, qi], allow_k, tabs, part_bits,
+                                lane(i32, qi) if self.inter_on else None,
+                                [lane(i16, qi, si) for si in range(4)]
+                                if self.inter_on else None)
                      for qi in range(4)]
             selY = ctxY[:, 1:65, 1:65]
             selU = ctxU[:, 1:33, 1:33]
@@ -647,24 +938,31 @@ class WavefrontPass(torch.nn.Module):
         recY = tY.permute(0, 2, 1, 3).reshape(Hp, Wp).to(torch.uint8)
         recU = tU.permute(0, 2, 1, 3).reshape(Hp >> 1, Wp >> 1).to(torch.uint8)
         recV = tV.permute(0, 2, 1, 3).reshape(Hp >> 1, Wp >> 1).to(torch.uint8)
-        return packed, recY, recU, recV
+        if not self.inter_on:
+            return packed, recY, recU, recV
+        mv = lambda d: torch.stack([d["mvr"], d["mvc"]], -1).to(torch.int16)
+        tail = (me8.to(torch.int16), i64["cost"], mv(i64), i32["cost"],
+                mv(i32), i16["cost"], mv(i16))
+        return packed, recY, recU, recV, tail
 
     def _quad(self, qi, ctxY, ctxU, ctxV, sYt, sUt, sVt, av_q, lam, qdc, qac,
-              allow_k, tabs, part_bits):
+              allow_k, tabs, part_bits, inter32=None, inter16=None):
         """One 32x32 quadrant: the 32 leaf, then the chain of four 16
         leaves from the same context, NONE vs SPLIT, and the winner's recon
-        written into the contexts (in place)."""
+        written into the contexts (in place).  inter32 / inter16: the
+        lanes' inter winners of the quadrant and of its four 16 blocks."""
         qy, qx = _QOFF[qi]
         r32, out32, lv32, cost32 = self.encode_leaf(
             ctxY, ctxU, ctxV, sYt, sUt, sVt, qy, qx, 32, av_q[:, 0], lam,
-            qdc, qac, allow_k, tabs)
+            qdc, qac, allow_k, tabs, inter32)
         outs16, lvs16 = [], []
         c16sum = torch.zeros_like(cost32)
         for si in range(4):
             ly, lx = qy + _SOFF[si][0], qx + _SOFF[si][1]
             r16, out16, lv16, c16 = self.encode_leaf(
                 ctxY, ctxU, ctxV, sYt, sUt, sVt, ly, lx, 16, av_q[:, 1 + si],
-                lam, qdc, qac, allow_k, tabs)
+                lam, qdc, qac, allow_k, tabs,
+                inter16[si] if inter16 is not None else None)
             ctxY[:, 1 + ly : 17 + ly, 1 + lx : 17 + lx] = r16[0]
             ctxU[:, 1 + (ly >> 1) : 9 + (ly >> 1), 1 + (lx >> 1) : 9 + (lx >> 1)] = r16[1]
             ctxV[:, 1 + (ly >> 1) : 9 + (ly >> 1), 1 + (lx >> 1) : 9 + (lx >> 1)] = r16[2]
@@ -691,12 +989,13 @@ class WavefrontPass(torch.nn.Module):
                     cost=torch.minimum(cost_none, cost_split))
 
     def _pack_step(self, quads, pick64, r64):
-        """One step's records: (4, B, rec_width) int16 (layout of
-        wavefront.py:1338-1368, int16 transport)."""
+        """One step's records: (4, B, rec_width(inter_on)) int16 (layout
+        of wavefront.py:1338-1368, int16 transport)."""
         Bn = quads[0]["split"].shape[0]
-        nf = len(FIELDS)
+        nf = len(self.fields)
         dev = quads[0]["split"].device
-        fld = lambda o: torch.stack([o[f].to(torch.int32) for f in FIELDS], -1)
+        fld = lambda o: torch.stack([o[f].to(torch.int32)
+                                     for f in self.fields], -1)
         m32 = torch.stack([fld(qd["out32"]) for qd in quads], 0)  # (4, B, nf)
         m16 = torch.stack([torch.stack([fld(o) for o in qd["outs16"]], 1)
                            for qd in quads], 0).reshape(4, Bn, 4 * nf)
@@ -871,11 +1170,12 @@ class LaunchedWavefront:
     def __init__(self, geom, fe, out):
         self.geom = geom
         self.fe = fe
-        self.out = out  # (records int16, recY, recU, recV) on the device
+        # (records int16, recY, recU, recV[, band tail]) on the device
+        self.out = out
 
     def collect(self) -> "WavefrontResult":
         r = unpack_wavefront(self.geom, self.out)
-        r.dev_out = self.out[1:]  # device-resident recon for the chain
+        r.dev_out = self.out[1:4]  # device-resident recon for the chain
         return r
 
 
@@ -918,7 +1218,9 @@ def launch_wavefront(fe, tiles) -> LaunchedWavefront | None:
                     flags[4], fe.mi_cols, fe.mi_rows, flags[5], flags[6],
                     flags[7], flags[8], flags[9], device=fe.device)
     grids = _lane_grids(fe, geom)
-    upload = pack_upload([fe], [grids], _mode_bit_params(fe))
+    extra, ref_bytes = _inter_upload(fe) if flags[9] else ((), ())
+    upload = pack_upload([fe], [grids], _mode_bit_params(fe), extra,
+                         ref_bytes)
     up = torch.from_numpy(upload).to(fe.device)
     return LaunchedWavefront(geom, fe, fn(up, *_geom_dev(geom, fe.device)))
 
@@ -933,18 +1235,46 @@ def _lane_grids(fe, geom):
     return lam_q, qdc_q, qac_q
 
 
-def pack_upload(fes, grids, bits) -> np.ndarray:
+def pack_upload(fes, grids, bits, extra=(), ref_bytes=()) -> np.ndarray:
     """The pass's single uint8 input, laid out as the JAX pass reads it:
     every frame's Y, then every U, then every V, then the float32
     parameters (lane grids, frame f in lanes [f*B, (f+1)*B), then the
-    shared mode-bit tail)."""
+    shared mode-bit tail, then the inter pass's `extra` grids), then the
+    inter pass's reference bytes."""
     cat = lambda i: np.concatenate([g[i] for g in grids], axis=1).ravel()
-    params = np.concatenate([cat(0), cat(1), cat(2), bits]).astype(np.float32)
+    params = np.concatenate([cat(0), cat(1), cat(2), bits, *extra]).astype(
+        np.float32)
     return np.concatenate(
         [fe.src[0].astype(np.uint8).ravel() for fe in fes]
         + [fe.src[1].astype(np.uint8).ravel() for fe in fes]
         + [fe.src[2].astype(np.uint8).ravel() for fe in fes]
-        + [params.view(np.uint8)])
+        + [params.view(np.uint8), *ref_bytes])
+
+
+def _inter_upload(fe):
+    """The inter pass's inputs beyond the keyframe ones (wavefront.py:1670
+    _inter_upload): (params_extra, ref_byte_parts).  The ME and the
+    candidates run on the device inside the pass; only the per-32
+    lambda/quantiser grids (quadrant order) and the edge-padded reference
+    planes ride the upload."""
+    R, C = fe.h // 64, fe.w // 64
+    r2, c2 = 2 * R, 2 * C
+    lam32 = np.full((r2, c2), fe.lam, np.float32)
+    lam_map = getattr(fe, "_lam_map", None)
+    if lam_map is not None:
+        yr = min(lam_map.shape[0], r2)
+        xr = min(lam_map.shape[1], c2)
+        lam32[:yr, :xr] = lam_map[:yr, :xr]
+    lam32q = np.ascontiguousarray(
+        lam32.reshape(R, 2, C, 2).transpose(0, 2, 1, 3))
+    extra = (lam32q.ravel().astype(np.float32),
+             np.full(R * C * 4, fe.dc_q, np.float32),
+             np.full(R * C * 4, fe.ac_q, np.float32))
+    refs = fe.refs[fe.ref_ids[0]]
+    ref_bytes = [mc.pad_ref_plane(p, mc.MC_MARGIN, fe.h >> s, fe.w >> s)
+                 .astype(np.uint8).ravel()
+                 for p, s in zip(refs, (0, 1, 1))]
+    return extra, ref_bytes
 
 
 def _fill_lane_params(fe, geom, lam_q, qdc_q, qac_q) -> None:
@@ -1113,13 +1443,23 @@ def _mode_bit_params(fe) -> np.ndarray:
 
 def unpack_wavefront(geom, out) -> "WavefrontResult":
     """Host copy of one frame's pass output (int16 records, uint8 recon
-    planes) as a WavefrontResult."""
-    rec16, y, u, v = out
+    planes, and the inter pass's band tail) as a WavefrontResult."""
+    rec16, y, u, v = out[:4]
     packed = np.ascontiguousarray(rec16.cpu().numpy())
     # writable int32 copies: the in-loop filters and the host partial-SB
     # encode mutate these in place
     rec = [p.cpu().numpy().astype(np.int32) for p in (y, u, v)]
-    return _build_result(geom, packed, rec)
+    res = _build_result(geom, packed, rec)
+    if len(out) > 4:
+        # band tail: in-pass ME map + per-level inter RD costs/MVs
+        me8, c64, m64, c32, m32, c16, m16 = (
+            t.cpu().numpy() for t in out[4])
+        i32 = lambda a: a.astype(np.int32)
+        res.me_map = i32(me8)
+        res.band64 = {"cost": c64, "mv": i32(m64)}
+        res.band32 = {"cost": c32, "mv": i32(m32)}
+        res.band16 = {"cost": c16, "mv": i32(m16)}
+    return res
 
 
 def _build_result(geom, packed: np.ndarray, rec: list) -> "WavefrontResult":

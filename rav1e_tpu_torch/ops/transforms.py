@@ -419,10 +419,11 @@ def coeff_rate(lv: torch.Tensor) -> torch.Tensor:
 
 
 def fwd_txq_plain(resid, Fv, FhT, tidx, qdc, qac, shift: int,
-                  bit_depth: int = 8):
+                  bit_depth: int = 8, thr=None):
     """Plain version of K2 (integer variant), per-block matrices
     Fv[tidx], FhT[tidx] (one product per matrix pair, as the JAX pass
-    runs one fdct_batch per tx type)."""
+    runs one fdct_batch per tx type), with the level-1 thinning where
+    thr is given."""
     if Fv.shape[0] == 1:
         cf = fdct_plain(resid, Fv[0], FhT[0])
     else:
@@ -433,6 +434,13 @@ def fwd_txq_plain(resid, Fv, FhT, tidx, qdc, qac, shift: int,
             sel = tidx == t
             cf[sel] = fdct_plain(resid[sel], Fv[t], FhT[t])
     lv = quantize_plain(cf, qdc, qac, shift)
+    if thr is not None:
+        # the inter race's level-1 thinning (wavefront.py:441-445): drop a
+        # +-1 level off DC where float(|cf| << shift) < thr (per block)
+        mag = (torch.abs(cf) << shift).to(torch.float32)
+        drop = (torch.abs(lv) == 1) & (mag < thr[..., None, None])
+        drop[..., 0, 0] = False
+        lv = torch.where(drop, torch.zeros_like(lv), lv)
     dq = dequantize_plain(lv, qdc, qac, shift, bit_depth)
     qerr = ((cf - dq) << shift).to(torch.float32)
     return lv, dq, (qerr * qerr).sum((-1, -2)), coeff_rate(lv)
@@ -444,25 +452,30 @@ def _as_blocks(x, like, dtype=torch.int32):
 
 
 def fwd_txq(resid: torch.Tensor, Fv: torch.Tensor, FhT: torch.Tensor,
-            qdc, qac, shift: int, tidx=None, bit_depth: int = 8):
+            qdc, qac, shift: int, tidx=None, bit_depth: int = 8, thr=None):
     """Fused forward transform, quantise, dequantise and RD sums (K2).
 
     resid: (..., n, n) int32; Fv: (T, m, n) and FhT: (T, n, m) float32
     matrix stacks (m = n, or 32 for the 64-point DCT's coded corner);
     tidx: per-block index into the stacks (None: all blocks use entry 0);
-    qdc/qac: quantisers broadcast over the batch shape.  Returns (levels,
-    dequantised) int32 (..., m, m), and float32 per-block tx-domain SSE
-    sum(((c - dq) << shift)^2) and coeff_rate(levels)."""
+    qdc/qac: quantisers broadcast over the batch shape; thr: float32
+    level-1 thinning thresholds broadcast over the batch shape (None: no
+    thinning; launches with one count under "fwd_txq_thin").  Returns
+    (levels, dequantised) int32 (..., m, m), and float32 per-block
+    tx-domain SSE sum(((c - dq) << shift)^2) and coeff_rate(levels)."""
     n = resid.shape[-1]
     m = Fv.shape[-2]
     qdc = _as_blocks(qdc, resid)
     qac = _as_blocks(qac, resid)
     if tidx is not None:
         tidx = _as_blocks(tidx, resid)
+    if thr is not None:
+        thr = _as_blocks(thr, resid, torch.float32)
     if resid.device.type == "cpu":
         if tidx is None:
             tidx = torch.zeros(resid.shape[:-2], dtype=torch.int32)
-        return fwd_txq_plain(resid, Fv, FhT, tidx, qdc, qac, shift, bit_depth)
+        return fwd_txq_plain(resid, Fv, FhT, tidx, qdc, qac, shift, bit_depth,
+                             thr)
     batch = resid.shape[:-2]
     x = resid.to(torch.int32).contiguous()
     nb = x.numel() // (n * n)
@@ -472,18 +485,19 @@ def fwd_txq(resid: torch.Tensor, Fv: torch.Tensor, FhT: torch.Tensor,
     rate = torch.empty_like(dist)
     nnz = torch.empty(batch, dtype=torch.int32, device=x.device)
     _launch_fwd(x, nb, n, m, Fv, FhT, tidx, qdc, qac, shift, bit_depth, 0,
-                lv, dq, dist, rate, nnz)
+                lv, dq, dist, rate, nnz, thr)
     return lv, dq, dist, rate
 
 
 def _launch_fwd(x, nb, n, m, Fv, FhT, tidx, qdc, qac, shift, bit_depth,
-                float_floor, lv, dq, dist, rate, nnz):
+                float_floor, lv, dq, dist, rate, nnz, thr=None):
     Fv = Fv.to(device=x.device, dtype=torch.float32).contiguous()
     FhT = FhT.to(device=x.device, dtype=torch.float32).contiguous()
     fn = kernels.lib("fwd_txq").fwd_txq
-    kernels.COUNTS["fwd_txq"] += 1
+    kernels.COUNTS["fwd_txq" if thr is None else "fwd_txq_thin"] += 1
     kernels.check(fn(x.data_ptr(), nb, n, m, Fv.data_ptr(), FhT.data_ptr(),
-                     kernels.ptr(tidx), qdc.data_ptr(), qac.data_ptr(), shift,
+                     kernels.ptr(tidx), qdc.data_ptr(), qac.data_ptr(),
+                     kernels.ptr(thr), shift,
                      QUANT_BIAS_NUM, 1 << (bit_depth + 7), float_floor,
                      RATE_NZ, RATE_MAG, kernels.ptr(lv), kernels.ptr(dq),
                      dist.data_ptr(), rate.data_ptr(), nnz.data_ptr(),

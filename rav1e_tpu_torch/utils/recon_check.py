@@ -1,10 +1,12 @@
 """Re-derive device reconstruction from the wavefront records with the
-numpy oracles (intra_np, quantize_np, transforms_np, deblock_np).
+numpy oracles (intra_np, mc_np, quantize_np, transforms_np, deblock_np).
 
 A conformance check that needs no decoder: every block record of a device
-superblock names its mode, angle delta, tx type and levels, so prediction
-from the final pre-filter recon, dequantisation and the normative inverse
-transform must land exactly on the recon the device carried.  The
+superblock names its mode, angle delta, tx type and levels (and on inter
+frames its motion vector), so prediction from the final pre-filter recon
+(for an inter block, mode 13: mc_np from the reference frame's
+post-filter recon), dequantisation and the normative inverse transform
+must land exactly on the recon the device carried.  The
 filtered frame is then held against the numpy oracles on the same
 pre-filter planes: deblock_np, then cdef_np with each superblock's coded
 strength pair, then lrf_np's Wiener filter with the coded taps on the
@@ -19,6 +21,7 @@ from rav1e_tpu_torch.ops import cdef_np as cnp
 from rav1e_tpu_torch.ops import deblock_np as dnp
 from rav1e_tpu_torch.ops import lrf_np as lnp
 from rav1e_tpu_torch.ops import intra_np as ip
+from rav1e_tpu_torch.ops import mc_np as mcn
 from rav1e_tpu_torch.ops import quantize_np as qz
 from rav1e_tpu_torch.ops import transforms_np as tn
 
@@ -47,12 +50,16 @@ def _block_avail(geom, r, c):
 
 
 def _recon(plane, x, y, n, mode, ha, hl, delta, ntr, nbl, levels, tx, dcq,
-           acq):
-    above, left = ip.build_edges(plane, x, y, n, n, bool(ha), bool(hl), 8,
-                                 n_top_right=int(ntr),
-                                 n_bottom_left=int(nbl))
-    pred = ip.predict(mode, above, left, n, n, bool(ha), bool(hl),
-                      angle_delta=delta)
+           acq, ref=None, mv=None, sub=0):
+    if mode == 13:  # inter, LAST, REGULAR filter
+        pred = mcn.put_single(ref, x, y, n, n, int(mv[0]), int(mv[1]), sub,
+                              sub, 8)
+    else:
+        above, left = ip.build_edges(plane, x, y, n, n, bool(ha), bool(hl),
+                                     8, n_top_right=int(ntr),
+                                     n_bottom_left=int(nbl))
+        pred = ip.predict(mode, above, left, n, n, bool(ha), bool(hl),
+                          angle_delta=delta)
     lv = np.zeros((n, n), np.int32)
     m = levels.shape[0]
     lv[:m, :m] = levels
@@ -60,22 +67,29 @@ def _recon(plane, x, y, n, mode, ha, hl, delta, ntr, nbl, levels, tx, dcq,
     return np.clip(pred + tn.inverse_transform(dq, tx), 0, 255)
 
 
-def rederive_sb(wf, rec, r: int, c: int, dc_q: int, ac_q: int) -> bool:
+def rederive_sb(wf, rec, r: int, c: int, dc_q: int, ac_q: int,
+                refs=None) -> bool:
     """Whether every block of device SB (r, c) re-derives exactly onto the
-    pre-filter recon planes `rec` [Y, U, V]."""
+    pre-filter recon planes `rec` [Y, U, V].  refs: the LAST reference's
+    post-filter recon [Y, U, V] at the real frame size (inter frames)."""
     av = _block_avail(wf.geom, r, c)
-    for (x, y, bw, _bh, mode, _skip, tt, ha, hl, _au, _av, delta, uv, lvy,
-         lvu, lvv) in wf.sb_records(r, c):
+    for rec_ in wf.sb_records(r, c):
+        (x, y, bw, _bh, mode, _skip, tt, ha, hl, _au, _av, delta, uv, lvy,
+         lvu, lvv) = rec_[:16]
+        mv = rec_[16:18] if mode == 13 else None
+        ref = (lambda p: refs[p]) if mode == 13 else (lambda p: None)
         ntr, nbl = av.get((x, y, bw), (0, 0))
         ly = _recon(rec[0], x, y, bw, mode, ha, hl, delta, ntr, nbl,
                     np.asarray(lvy), tn.DCT_DCT if bw == 64 else _TT[tt],
-                    dc_q, ac_q)
+                    dc_q, ac_q, ref(0), mv)
         if not np.array_equal(ly, rec[0][y : y + bw, x : x + bw]):
             return False
         cn = bw >> 1
+        cmode = 13 if mode == 13 else uv
         for p, lvc in ((1, lvu), (2, lvv)):
-            lc = _recon(rec[p], x >> 1, y >> 1, cn, uv, ha, hl, 0, 0, 0,
-                        np.asarray(lvc), _UV_TX[uv], dc_q, ac_q)
+            lc = _recon(rec[p], x >> 1, y >> 1, cn, cmode, ha, hl, 0, 0, 0,
+                        np.asarray(lvc), _UV_TX[uv], dc_q, ac_q, ref(p), mv,
+                        1)
             if not np.array_equal(lc, rec[p][y >> 1 : (y >> 1) + cn,
                                              x >> 1 : (x >> 1) + cn]):
                 return False

@@ -3,8 +3,9 @@
 These tests need an NVIDIA GPU and nvcc: each builds its kernel from
 rav1e_tpu_torch/csrc, launches it on CUDA tensors and holds the result
 against the plain version on the same inputs (identical for intra_pred,
-inv_txfm, deblock, cdef_dir, cdef_filter, wiener_solve and wiener_lr;
-fwd_txq within its rounding-tie share).  Without a
+inv_txfm, deblock, cdef_dir, cdef_filter, wiener_solve, wiener_lr,
+mc_pred and me_fullpel; fwd_txq, with and without the inter race's
+thinning, within its rounding-tie share).  Without a
 card they skip.  On a machine without JAX (the tests' conftest imports
 it) run them as
 
@@ -250,7 +251,147 @@ def test_keyframes_on_card_conform(monkeypatch):
     monkeypatch.setattr(chip_smoke, "H", 240)
     kernels.reset_counts()
     data, recon, fes = chip_smoke.encode(make_frames(320, 240, 2), check=True)
-    assert all(v > 0 for v in kernels.COUNTS.values()), kernels.COUNTS
+    # the keyframe kernels K1-K8 (K9, K10 and the thinning are inter-only)
+    assert all(kernels.COUNTS[k] > 0 for k in kernels.KERNELS[:8]), \
+        kernels.COUNTS
     summary = chip_smoke.check_output(data, recon, fes, 2)
     assert summary["sbs_rederived"] > 0
+    assert summary["filter_chain_np_frames"] == 2
+
+
+def _padded_ref(rng, h, w, dev):
+    from rav1e_tpu_torch.ops import mc
+
+    ref = rng.integers(0, 256, (h, w)).astype(np.int32)
+    pad = mc.pad_ref_plane(ref, mc.MC_MARGIN, (h + 63) & ~63, (w + 63) & ~63)
+    return torch.as_tensor(pad.astype(np.uint8), device=dev)
+
+
+@pytest.mark.parametrize("n,sub", [(64, 0), (32, 0), (16, 0), (32, 1),
+                                   (16, 1), (8, 1)])
+def test_mc_pred_kernel(n, sub):
+    """K9 on every 1/16 phase in both axes, blocks at the plane's edges and
+    MVs at +-MV_LIMIT, identical to the plain version."""
+    from rav1e_tpu_torch import kernels
+    from rav1e_tpu_torch.ops import mc
+
+    dev = _card()
+    rng = np.random.default_rng(SEED + n + sub)
+    h, w = (1080 >> sub, 1920 >> sub)
+    ref = _padded_ref(rng, h, w, dev)
+    hp, wp = ((h + 63) & ~63), ((w + 63) & ~63)
+    B = 512
+    px = rng.integers(0, wp // n, B) * n
+    py = rng.integers(0, hp // n, B) * n
+    px[:4], py[:4] = (0, wp - n, 0, wp - n), (0, 0, hp - n, hp - n)
+    lim = mc.MV_LIMIT
+    mv = rng.integers(-lim, lim + 1, (B, 2))
+    mv[:8] = [(lim, lim), (-lim, -lim), (lim, -lim), (-lim, lim)] * 2
+    # every residue mod 16 in each axis: all 16 phases of chroma, all the
+    # (even) phases luma can take
+    k = np.arange(B - 8)
+    mv[8:, 0] = np.clip((mv[8:, 0] & ~15) + (k // 16) % 16, -lim, lim)
+    mv[8:, 1] = np.clip((mv[8:, 1] & ~15) + k % 16, -lim, lim)
+    t = lambda a: torch.as_tensor(a, device=dev, dtype=torch.int32)
+    before = kernels.COUNTS["mc_pred"]
+    args = (ref, mc.MC_MARGIN, t(px), t(py), t(mv[:, 0]), t(mv[:, 1]), n, n,
+            sub, sub)
+    got = mc.mc_block_batch(*args)
+    assert kernels.COUNTS["mc_pred"] == before + 1
+    assert torch.equal(got, mc.mc_block_batch_plain(*args))
+
+
+@pytest.mark.parametrize("kind", ["shifted", "flat"])
+def test_me_fullpel_kernel(kind):
+    """K10 at 1088x1920: a reference shifted by a known offset plus noise,
+    and a flat reference where every offset ties (first minimum wins);
+    identical to the plain version."""
+    from rav1e_tpu_torch import kernels
+    from rav1e_tpu_torch.models import device_pipeline as dp
+
+    dev = _card()
+    rng = np.random.default_rng(SEED + len(kind))
+    h, w = 1088, 1920
+    base = rng.integers(0, 256, (h + 64, w + 64))
+    base = (base + np.roll(base, 1, 0) + np.roll(base, 1, 1)) // 3
+    src = base[32 : 32 + h, 32 : 32 + w]
+    if kind == "flat":
+        ref = np.full((h, w), 128)
+    else:
+        ref = np.clip(base[32 - 7 : 32 - 7 + h, 32 + 13 : 32 + 13 + w]
+                      + rng.integers(-3, 4, (h, w)), 0, 255)
+    t = lambda a: torch.as_tensor(a.astype(np.uint8), device=dev)
+    before = kernels.COUNTS["me_fullpel"]
+    got = dp.me_fullpel(t(src), t(ref), 32)
+    assert kernels.COUNTS["me_fullpel"] == before + 1
+    assert torch.equal(got, dp.me_fullpel_plain(t(src), t(ref), 32))
+    if kind == "shifted":  # interior blocks find the shift
+        assert (got[2:-2, 2:-2] == torch.as_tensor(
+            (7, -13), dtype=torch.int32, device=dev)).float().mean() > 0.9
+
+
+@pytest.mark.parametrize("n", [16, 32, 64])
+def test_fwd_txq_thin_kernel(n):
+    """K2 with per-block level-1 thinning thresholds, against the plain
+    version (chip_smoke's rounding-tie rule); counted under
+    fwd_txq_thin."""
+    import chip_smoke
+    from rav1e_tpu_torch import kernels
+    from rav1e_tpu_torch.ops import transforms as tt
+    from rav1e_tpu_torch.ops import transforms_np as tn
+
+    dev = _card()
+    rng = np.random.default_rng(SEED + 7 * n)
+    m = min(n, 32)
+    Fv, FhT = tt.fwd_mats(tn.DCT_DCT, n, n)
+    Fv = torch.as_tensor(Fv[None, :m], device=dev)
+    FhT = torch.as_tensor(FhT[None, :, :m], device=dev)
+    B = 480
+    resid = torch.as_tensor(rng.integers(-40, 41, (B, n, n)), device=dev,
+                            dtype=torch.int32)
+    qdc = torch.full((B,), 116, dtype=torch.int32, device=dev)
+    qac = torch.full((B,), 140, dtype=torch.int32, device=dev)
+    thr = torch.as_tensor(rng.uniform(0, 400, B), device=dev,
+                          dtype=torch.float32)
+    shift = {16: 0, 32: 1, 64: 2}[n]
+    before = kernels.COUNTS["fwd_txq_thin"]
+    lv, dq, dist, rate = tt.fwd_txq(resid, Fv, FhT, qdc, qac, shift, thr=thr)
+    assert kernels.COUNTS["fwd_txq_thin"] == before + 1
+    tidx = torch.zeros((B,), dtype=torch.int32, device=dev)
+    rl, rdq, rdist, rrate = tt.fwd_txq_plain(resid, Fv, FhT, tidx, qdc, qac,
+                                             shift, thr=thr)
+    # chip_smoke's tie rule: levels may differ only at coefficients within
+    # the fp32 bound of a .5 tie, and the sums agree in blocks without one
+    # (a tie can move a coefficient, and with it the distortion, without
+    # moving its level)
+    ties = chip_smoke.fdct_ties(resid, Fv, FhT, None)
+    bad = (lv != rl) | (dq != rdq)
+    assert not (bad & ~ties).any()
+    assert bad.float().mean() <= 1e-3
+    clean = ~ties.flatten(1).any(1)
+    assert torch.allclose(rate[clean], rrate[clean], rtol=1e-4)
+    assert torch.allclose(dist[clean], rdist[clean], rtol=1e-4)
+    unthinned = tt.fwd_txq_plain(resid, Fv, FhT, tidx, qdc, qac, shift)[0]
+    assert (unthinned.abs() == 1).sum() > (rl.abs() == 1).sum()
+
+
+def test_mixed_gop_on_card_conforms(monkeypatch):
+    """1 key + 2 inter frames of 320x240 through Config -> Context on the
+    card in bench.py's mixed configuration: every kernel launches, both
+    inter frames take the inter wavefront, and the output conforms as
+    chip_smoke.py checks it (inter blocks re-derived with mc_np)."""
+    import chip_smoke
+    from rav1e_tpu_torch import kernels
+    from rav1e_tpu_torch.utils.content import make_frames
+
+    _card()
+    monkeypatch.setattr(chip_smoke, "W", 320)
+    monkeypatch.setattr(chip_smoke, "H", 240)
+    kernels.reset_counts()
+    data, recon, fes = chip_smoke.encode(make_frames(320, 240, 3), check=True,
+                                         mixed=True)
+    assert all(v > 0 for v in kernels.COUNTS.values()), kernels.COUNTS
+    assert [fe._chk_wf.has_mv for fe in fes] == [False, True, True]
+    summary = chip_smoke.check_output(data, recon, fes, 2)
+    assert summary["sbs_rederived_with_inter_blocks"] > 0
     assert summary["filter_chain_np_frames"] == 2

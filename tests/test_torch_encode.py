@@ -50,6 +50,11 @@ from rav1e_tpu_torch.ops import transforms as tt
 from rav1e_tpu_torch.utils import dav1d_oracle as dav1d
 from rav1e_tpu_torch.utils.content import make_planes
 
+# one intra-op thread: the suite runs several test processes side by
+# side on the CPU, and torch's default (a thread a core in each) makes
+# them contend
+torch.set_num_threads(1)
+
 W, H, NF = 320, 240, 2
 # frames of the encodes at the defaults: every frame is a key frame coded
 # alone, so one takes the whole path (the JAX one compiles its chain)
@@ -403,8 +408,9 @@ def test_config_needs_a_card_unless_cpu():
 
 
 def test_port_imports_no_jax():
-    """Importing the port and encoding a 64x64 key frame loads neither jax
-    nor any module of the JAX package (a fresh interpreter: this test
+    """Importing the port and encoding a 64x64 key frame, then a 320x240
+    key frame and an inter frame (the inter wavefront path), loads neither
+    jax nor any module of the JAX package (a fresh interpreter: this test
     process has JAX loaded already)."""
     code = (
         "import sys\n"
@@ -417,11 +423,18 @@ def test_port_imports_no_jax():
         "ctx.send_frame(make_frames(64, 64, 1)[0])\n"
         "ctx.flush()\n"
         "assert len(ctx.receive_packet().data) > 0\n"
+        "ctx = Config(enc=EncoderConfig(width=320, height=240, quantizer=100,"
+        " low_latency=True, speed_settings=ss), device='cpu').new_context()\n"
+        "for f in make_frames(320, 240, 2):\n"
+        "    ctx.send_frame(f)\n"
+        "ctx.flush()\n"
+        "types = [ctx.receive_packet().frame_type for _ in range(2)]\n"
+        "assert types == ['key', 'inter'], types\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'rav1e_tpu' or m.startswith('rav1e_tpu.')]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]

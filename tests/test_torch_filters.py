@@ -41,6 +41,11 @@ from rav1e_tpu_torch.ops import cdef as tcd
 from rav1e_tpu_torch.ops import filter_chain as tfc
 from rav1e_tpu_torch.ops import lrf as tlr
 
+# one intra-op thread: the suite runs several test processes side by
+# side on the CPU, and torch's default (a thread a core in each) makes
+# them contend
+torch.set_num_threads(1)
+
 SEED = 20261017
 # |coef * 128 - (k + 0.5)| within which an f32 solve may round a tap the
 # other way (the f32 normal equations carry ~1e-6 relative error)
