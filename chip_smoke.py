@@ -37,11 +37,12 @@
    inside it, CDEF and LR); with --profile also under torch.profiler (the
    card's busy time by kernel; minutes).  Times the CDEF decision glue
    (ops/cdef.py decide) alone beside its bound.
-8. Drives the mixed-GOP path: bench.py's mixed configuration (1 key + 15
-   inter frames of 1920x1080, max_key_frame_interval 240, low latency,
-   speed-6 defaults), with the counts set to 0 before it.  All 15 inter
-   frames must take the inter wavefront, every kernel must launch (K9
-   mc_pred, K10 me_fullpel and fwd_txq with thinning among them), and
+8. Drives the mixed-GOP path: bench.py's mixed configuration (its 1 key
+   + 15 inter frames of 1920x1080, max_key_frame_interval 240, low
+   latency, speed-6 defaults), with the counts set to 0 before it.  All
+   15 inter frames must take the inter wavefront, every kernel
+   but the speed-5 path's must launch (K9 mc_pred, K10 me_fullpel and
+   fwd_txq with thinning among them), and
    blocks must choose inter prediction with nonzero MVs.  Holds K9 and
    K10 (identical) and fwd_txq with thinning (the tie rule) against their
    plain versions on the path's largest calls, timed beside their bounds;
@@ -49,6 +50,22 @@
    from the reference's output recon) and INTER_FILTER_FRAMES inter frames
    through deblock_np, cdef_np and lrf_np; a second encode must write the
    same bytes, and gives the mixed GOP's frames/s and stage seconds.
+9. Drives the speed-5 path: bench.py's keyframe configuration at
+   SpeedSettings.from_preset(5) (CFL in the pass, the host deblock level
+   search, the CDEF search outside the chain, the SGR and per-unit Wiener
+   LR search), 8 frames, with the counts set to 0 before it: K1-K3, K5,
+   K6, K8 in frame mode and K11 cfl must launch, K4 deblock and K7
+   wiener_solve must not.  Holds K11 and K8's frame mode (stripes 64 and
+   32) against their plain versions, timed beside their bounds, and times
+   the CDEF search outside the chain; re-derives sampled superblocks and
+   FILTER_FRAMES frames through deblock_np, cdef_np and lrf_np / sgr_np
+   with the coded parameters, and counts the restoration units by kind.
+   Then CFL_FRAMES frames of content whose chroma follows its luma (the
+   bench content seldom picks CFL): CFL must win blocks, and the
+   superblocks holding them re-derive.  A timed second encode of
+   KEY_TIMED frames must write the same bytes; a 320x240 key frame takes
+   the small-frame CDEF route (_cdef_search, cdef_frame_device); a GOP of
+   1 key + 3 inter frames at speed 5 takes the inter pass.
 
 The line before the last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero.
@@ -64,6 +81,8 @@ import time
 
 W, H, NFRAMES = 1920, 1080, 8
 MIXED_FRAMES = 16  # bench.py's mixed GOP: 1 key + 15 inter
+CFL_FRAMES = 2  # speed-5 key frames of content whose chroma follows luma
+GOP5_FRAMES = 4  # the speed-5 GOP: 1 key + 3 inter
 KEY_TIMED = 4  # frames of the keyframe path's timed second encode
 SB_SAMPLES = 16
 FILTER_FRAMES = 2  # frames whose whole filter chain is re-derived in numpy
@@ -98,30 +117,33 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def encode(frames, check: bool, device: str = "cuda", filters: bool = True,
-           mixed: bool = False):
+def encode(frames, check: bool, device: str = "cuda",
+           filters: bool = True, mixed: bool = False, speed: int = 6,
+           size=None):
     """Encode `frames` through the public API on `device`, in bench.py's
     keyframe configuration (filters=False: with CDEF and loop restoration
     off), or with mixed in its mixed-GOP configuration (a key frame, then
-    inter frames).  With check, keep each frame's pre-filter planes and
-    wavefront records; the encoders are returned in coding order."""
+    inter frames), at SpeedSettings.from_preset(speed) and W x H (or
+    size).  With check, keep each frame's pre-filter planes and wavefront
+    records; the encoders are returned in coding order."""
     from rav1e_tpu_torch import Config, EncoderConfig, SpeedSettings
     from rav1e_tpu_torch.api.context import EncoderError, EncoderStatus
     from rav1e_tpu_torch.models import inter_frame, intra_frame
     from rav1e_tpu_torch.ops import filter_chain
 
-    ss = SpeedSettings.from_preset(6)
+    w, h = size or (W, H)
+    ss = SpeedSettings.from_preset(speed)
     if not filters:
         ss.cdef = False
         ss.lrf = False
     if mixed:
-        enc = EncoderConfig(width=W, height=H, quantizer=100,
+        enc = EncoderConfig(width=w, height=h, quantizer=100,
                             max_key_frame_interval=240,
                             rdo_lookahead_frames=8, low_latency=True,
                             speed_settings=ss)
     else:
         enc = EncoderConfig(
-            width=W, height=H, quantizer=100, min_key_frame_interval=1,
+            width=w, height=h, quantizer=100, min_key_frame_interval=1,
             max_key_frame_interval=1, rdo_lookahead_frames=8,
             low_latency=True, speed_settings=ss)
     cfg = Config(enc=enc, device=device)
@@ -129,6 +151,18 @@ def encode(frames, check: bool, device: str = "cuda", filters: bool = True,
     orig_splice = filter_chain._splice
     orig_tiles = intra_frame.IntraFrameEncoder._encode_tiles_wavefront
     orig_install = inter_frame.InterFrameEncoder._install_wavefront
+    orig_finish = intra_frame.IntraFrameEncoder._finish_encode
+
+    def finish(self):
+        # the host filter path (the deblock search at speed <= 5): the
+        # pre-filter planes are the recon before the host deblocks it
+        if not hasattr(self, "_chk_prefilter"):
+            hh, ww = self.coded_h, self.coded_w
+            self._chk_prefilter = [
+                self.rec[0][:hh, :ww].copy(),
+                self.rec[1][: hh >> 1, : ww >> 1].copy(),
+                self.rec[2][: hh >> 1, : ww >> 1].copy()]
+        return orig_finish(self)
 
     def splice(fe, dev_rec, device):
         planes = orig_splice(fe, dev_rec, device)
@@ -149,6 +183,7 @@ def encode(frames, check: bool, device: str = "cuda", filters: bool = True,
         filter_chain._splice = splice
         intra_frame.IntraFrameEncoder._encode_tiles_wavefront = tiles
         inter_frame.InterFrameEncoder._install_wavefront = install
+        intra_frame.IntraFrameEncoder._finish_encode = finish
     try:
         ctx = cfg.new_context()
         pkts = []
@@ -172,11 +207,13 @@ def encode(frames, check: bool, device: str = "cuda", filters: bool = True,
         filter_chain._splice = orig_splice
         intra_frame.IntraFrameEncoder._encode_tiles_wavefront = orig_tiles
         inter_frame.InterFrameEncoder._install_wavefront = orig_install
+        intra_frame.IntraFrameEncoder._finish_encode = orig_finish
     if len(pkts) != len(frames):
         raise RuntimeError(f"{len(pkts)} packets for {len(frames)} frames")
     recon = [ctx._encoder.recon_by_input[i] for i in range(len(frames))]
     encode.stages = dict(ctx._encoder.stats.stage_seconds)
     encode.mode_counts = dict(ctx._encoder.stats.mode_counts)
+    encode.cfl_blocks = ctx._encoder.stats.cfl_blocks
     encode.frame_types = [p.frame_type for p in pkts]
     return [p.data for p in pkts], recon, seen
 
@@ -289,6 +326,37 @@ def _me_work(a, k):
             + nb * (289 + 25) * 2)
 
 
+def _wiener_frame_work(a, k):
+    """Bytes and operations of one K8 launch in frame mode: the CDEF output
+    read once, the deblocked plane in the rows the stripe rule takes, the
+    restored plane written (int32); the horizontal pass over each distinct
+    source row and the vertical pass over each sample."""
+    import numpy as np
+
+    from rav1e_tpu_torch.ops import lrf
+
+    stripe, hh, ww = a[3], a[4], a[5]
+    ridx, use_db = lrf.stripe_table(hh, stripe)
+    db_rows = np.unique(ridx[use_db]).size
+    return (hh * ww * 8 + db_rows * ww * 4 + 24,
+            (hh + db_rows) * ww * WIENER_PASS_OPS + hh * ww * WIENER_PASS_OPS)
+
+
+CFL_OPS = 31  # an AC sample: the 2x2 sum and shift, the mean, ac^2 and the
+#               two planes' residual products; then per plane the scaled
+#               prediction (multiply, magnitude, round, sign, add, clip)
+#               and the residual
+
+
+def _cfl_work(a, k):
+    """Bytes and operations of one K11 launch: the int32 luma blocks, the
+    DC predictions and the sources of both planes read; both planes'
+    predictions and residuals and two alphas a block written."""
+    luma, dc = a[0], a[1]
+    return (luma.numel() * 4 + dc.numel() * 16 + luma.shape[0] * 8,
+            dc.numel() // 2 * CFL_OPS)
+
+
 def _decide_work(a, k):
     """Bytes and operations of the CDEF decision (ops/cdef.py decide): the
     11 candidates' superblock SSE (int32) and the per-mi skip map read,
@@ -329,6 +397,9 @@ WORK = {
     "wiener_solve": lambda a, k: (sum(d.numel() for d in a[0]) * 8 + 84,
                                   sum(d.numel() for d in a[0]) * 2 * 30),
     "wiener_lr": _wiener_lr_work,
+    "wiener_lr_frame": _wiener_frame_work,
+    "wiener_lr_frame_32": _wiener_frame_work,
+    "cfl": _cfl_work,
 }
 
 
@@ -354,7 +425,11 @@ class Capture:
         self._undo = []
         for mod, name, stage in (
                 (device_pipeline, "launch_band_rd_maps", "band_maps"),
-                (filter_chain, "launch_filter_chain", "filter_chain")):
+                (filter_chain, "launch_filter_chain", "filter_chain"),
+                # the host filter path (speed <= 5)
+                (cdef, "cdef_search_apply_device", "cdef_search"),
+                (cdef, "cdef_frame_device", "cdef_search"),
+                (lrf, "wiener_filter_frame_device", "lr_trial")):
             self._stage(mod, name, stage)
         for mod, name, key, size in (
                 (cdef, "cdef_dir", "cdef_dir", lambda a, k: a[0].numel()),
@@ -365,6 +440,11 @@ class Capture:
                 (lrf, "wiener_solve", "wiener_solve",
                  lambda a, k: sum(d.numel() for d in a[0])),
                 (lrf, "wiener_lr", "wiener_lr", lambda a, k: a[8] * a[9]),
+                (lrf, "wiener_filter_frame",
+                 lambda a, k: ("wiener_lr_frame" if a[3] == 64
+                               else "wiener_lr_frame_32"),
+                 lambda a, k: a[4] * a[5]),
+                (intra, "cfl", "cfl", lambda a, k: a[1].numel()),
                 (intra, "intra_pred", "intra_pred",
                  lambda a, k: a[0].shape[0] * (61 if a[5] else 7) * a[4] ** 2),
                 (transforms, "fwd_txq",
@@ -924,7 +1004,7 @@ def check_output(data, recon, fes, filter_frames: int):
     summary["sbs_rederived_with_inter_blocks"] = int(inter_sbs)
     summary["filter_chain_np_frames"] = filter_frames
     summary["cdef_per_sb"] = sum(fe.cdef_sb is not None for fe in fes)
-    summary["lr_units_wiener"] = sum(
+    summary["lr_units_restored"] = sum(
         sum(v is not None for v in getattr(fe, "_lr_params", {}).values())
         for fe in fes)
     return summary
@@ -967,7 +1047,9 @@ def mixed_gop(card: str) -> list:
     print(json.dumps({"mixed_path_launches": counts,
                       "first_encode_s": t_first, "frame_types": types,
                       "serialised_s": dict(secs), "card": card}))
-    missing = [k for k, v in counts.items() if v == 0]
+    # every counter but the speed-5 path's own (phase 9)
+    missing = [k for k, v in counts.items()
+               if v == 0 and k not in ("cfl", "wiener_lr_frame")]
     if missing:
         raise RuntimeError(f"kernels not launched on the mixed path: "
                            f"{missing}")
@@ -1011,6 +1093,266 @@ def mixed_gop(card: str) -> list:
         "frames": MIXED_FRAMES, "size": f"{W}x{H}", "seconds": t_enc,
         "fps": MIXED_FRAMES / t_enc, "stages_s": encode.stages,
         "card": card}}))
+    return results
+
+
+# speed 5 on the host filter path: launched, and not launched (the host
+# deblocks; the frame taps are the host's tap solve, K8 only filters)
+SPEED5_LAUNCHED = ("intra_pred", "fwd_txq", "inv_txfm", "cdef_dir",
+                   "cdef_filter", "wiener_lr_frame", "cfl")
+SPEED5_IDLE = ("deblock", "wiener_solve")
+
+
+def check_speed5_kernels(calls, counts, frames_per_run):
+    """K11 cfl and K8 in frame mode (stripes 64 and 32) on the speed-5
+    path's largest calls: identical to their plain versions, timed beside
+    their bounds.  No single PyTorch call computes either (library_ms
+    null).  Returns the kernels JSON list."""
+    from rav1e_tpu_torch.ops import intra, lrf
+
+    out = []
+    entry = make_entry(out, counts, frames_per_run)
+    _, a, _k = calls["cfl"]
+    err = _same(intra.cfl(*a), intra.cfl_plain(*a), "cfl")
+    print(json.dumps({"cfl_call": {"blocks": int(a[0].shape[0]),
+                                   "n": int(a[0].shape[-1])}}))
+    entry("cfl", "rav1e_tpu_torch/csrc/cfl.cu",
+          "rav1e_tpu/ops/intra_jax.py:317", err,
+          cuda_ms(lambda: intra.cfl(*a)),
+          cuda_ms(lambda: intra.cfl_plain(*a)), WORK["cfl"](a, {}))
+    errs = {}
+    for key in ("wiener_lr_frame", "wiener_lr_frame_32"):
+        _, a, _k = calls[key]
+        cd, db, taps, stripe, hh, ww = a
+        errs[stripe] = _same(lrf.wiener_filter_frame(*a),
+                             lrf.wiener_filter_plain(cd, db, taps[0], taps[1],
+                                                     stripe, hh, ww),
+                             f"wiener_lr frame mode, stripe {stripe}")
+    print(json.dumps({"wiener_lr_frame_parity": errs}))
+    _, a, _k = calls["wiener_lr_frame"]
+    cd, db, taps, stripe, hh, ww = a
+    entry("wiener_lr_frame", "rav1e_tpu_torch/csrc/wiener_lr.cu",
+          "rav1e_tpu/ops/lrf_jax.py:43", max(errs.values()),
+          cuda_ms(lambda: lrf.wiener_filter_frame(*a)),
+          cuda_ms(lambda: lrf.wiener_filter_plain(cd, db, taps[0], taps[1],
+                                                  stripe, hh, ww), reps=5),
+          WORK["wiener_lr_frame"](a, {}))
+    return out
+
+
+def _search_apply_plain(y, u, v, sy, su, sv, skip, sb_lam, damping):
+    """ops/cdef.py search_apply through the plain versions of K5 and K6."""
+    from rav1e_tpu_torch.ops import cdef
+
+    h, w = y.shape
+    dirs, var = cdef.cdef_dir_plain(y)
+    act = cdef.active_blocks(skip, h, w)
+    sse = cdef.cdef_filter_plain(y, u, v, sy, su, sv, dirs, var, act,
+                                 damping, cdef.SEARCH)
+    sel = cdef.decide(sse, skip, sb_lam, h, w)
+    return sel + cdef.cdef_filter_plain(y, u, v, sy, su, sv, dirs, var, act,
+                                        damping, cdef.APPLY, sel[2])
+
+
+def time_cdef_route(calls) -> dict:
+    """The CDEF search outside the chain (cdef_search_apply_device's
+    device work: K5, K6 search, the decision, K6 apply) timed on the
+    speed-5 path's captured frame, beside the plain versions and the sum
+    of the four calls' bounds."""
+    from rav1e_tpu_torch.ops import cdef
+
+    _, d, _k = calls["cdef_dir"]
+    _, s_a, _k = calls["cdef_filter_search"]
+    _, p_a, _k = calls["cdef_filter_apply"]
+    _, c_a, _k = calls["cdef_decide"]
+    y, u, v, sy, su, sv = s_a[:6]
+    skip, lam, damping = c_a[1], c_a[2], s_a[9]
+    got = cdef.search_apply(y, u, v, sy, su, sv, skip, lam, damping)
+    ref = _search_apply_plain(y, u, v, sy, su, sv, skip, lam, damping)
+    err = _same(tuple(got[2:]), tuple(ref[2:]), "cdef search_apply")
+    works = [WORK["cdef_dir"](d, {}), WORK["cdef_filter"](s_a, {}),
+             WORK["cdef_decide"](c_a, {}), WORK["cdef_filter"](p_a, {})]
+    return {"ms": cuda_ms(lambda: cdef.search_apply(
+                y, u, v, sy, su, sv, skip, lam, damping)),
+            "plain_ms": cuda_ms(lambda: _search_apply_plain(
+                y, u, v, sy, su, sv, skip, lam, damping), reps=2),
+            "bound_ms": sum(bound_ms(*w_) for w_ in works),
+            "max_abs_err": err, "size": list(y.shape)}
+
+
+def time_cdef_frame(calls) -> dict:
+    """cdef_frame_device's device work (K5, then K6 in apply mode with
+    the fixed strengths) on the small route's captured frame: identical
+    to the plain versions, timed beside them and the bound."""
+    from rav1e_tpu_torch.ops import cdef
+
+    _, d, _k = calls["cdef_dir"]
+    _, p_a, _k = calls["cdef_filter_apply"]
+    err = max(_same(cdef.cdef_dir(*d), cdef.cdef_dir_plain(*d), "cdef_dir"),
+              _same(cdef.cdef_filter(*p_a), cdef.cdef_filter_plain(*p_a),
+                    "cdef_filter (fixed strengths)"))
+    return {"ms": cuda_ms(lambda: (cdef.cdef_dir(*d), cdef.cdef_filter(*p_a))),
+            "plain_ms": cuda_ms(lambda: (cdef.cdef_dir_plain(*d),
+                                         cdef.cdef_filter_plain(*p_a)),
+                                reps=5),
+            "bound_ms": bound_ms(*WORK["cdef_dir"](d, {}))
+            + bound_ms(*WORK["cdef_filter"](p_a, {})),
+            "max_abs_err": err, "size": list(p_a[0].shape)}
+
+
+def rederive_cfl(fes, limit: int = 64) -> dict:
+    """Re-derive every sampled device superblock that holds a CFL block
+    (uv mode 13 on an intra block), up to `limit`: the CFL chroma is the
+    DC prediction with the coded alpha on the block's final luma AC."""
+    import numpy as np
+
+    from rav1e_tpu_torch.utils import recon_check
+
+    sbs = blocks = 0
+    for fe in fes:
+        wf = fe._chk_wf
+        for sr, sc in np.argwhere(wf.geom.device_sb):
+            recs = wf.sb_records(int(sr), int(sc))
+            n = sum(b[4] != 13 and b[12] == 13 for b in recs)
+            if not n or sbs >= limit:
+                continue
+            if not recon_check.rederive_sb(wf, fe._chk_prefilter, int(sr),
+                                           int(sc), fe.dc_q, fe.ac_q):
+                raise RuntimeError(f"CFL SB ({sr}, {sc}) does not re-derive")
+            sbs += 1
+            blocks += n
+    return {"cfl_sbs_rederived": sbs, "cfl_blocks_in_them": int(blocks)}
+
+
+def lr_units(fes) -> dict:
+    """The luma loop-restoration units chosen by kind: Wiener with the
+    frame's taps, Wiener with the unit's own taps, SGR (by set)."""
+    from collections import Counter
+
+    c = Counter()
+    for fe in fes:
+        params = [v for v in fe._lr_params.values() if v is not None]
+        taps = Counter((tuple(v[1]), tuple(v[2])) for v in params
+                       if v[0] == "wiener")
+        frame = taps.most_common(1)[0][0] if taps else None
+        for v in params:
+            if v[0] == "sgr":
+                c[f"sgr_set_{v[1]}"] += 1
+            elif (tuple(v[1]), tuple(v[2])) == frame:
+                c["wiener_frame_taps"] += 1
+            else:
+                c["wiener_unit_taps"] += 1
+        c["units"] += len(fe._lr_params)
+    return dict(c)
+
+
+def speed5(card: str) -> list:
+    """The speed-5 path (phase 9 of the module docstring).  Returns the
+    kernels JSON entries of K11 and K8's frame mode."""
+    import torch
+
+    from rav1e_tpu_torch import kernels
+    from rav1e_tpu_torch.utils.content import make_frames, make_frames_cfl
+
+    frames = make_frames(W, H, NFRAMES)
+    cap = Capture()
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        data, recon, fes = encode(frames, check=True, speed=5)
+        torch.cuda.synchronize()
+    finally:
+        cap.restore()
+    t_first = time.perf_counter() - t0
+    counts = dict(kernels.COUNTS)
+    cfl_bench = encode.cfl_blocks
+    print(json.dumps({"speed5_path_launches": counts,
+                      "first_encode_s": t_first, "cfl_blocks": cfl_bench,
+                      "stages_s": encode.stages, "card": card}))
+    missing = [k for k in SPEED5_LAUNCHED if counts[k] == 0]
+    if missing:
+        raise RuntimeError(f"kernels not launched on the speed-5 path: "
+                           f"{missing}")
+    ran = [k for k in SPEED5_IDLE if counts[k]]
+    if ran:
+        raise RuntimeError(f"kernels of the device chain launched on the "
+                           f"speed-5 host filter path: {ran}")
+    if len(fes) != NFRAMES:
+        raise RuntimeError(f"{len(fes)} of {NFRAMES} frames took the "
+                           "wavefront")
+    print(json.dumps({"speed5_bound_ms_per_frame": {
+        k: v / NFRAMES for k, v in cap.bounds.items()}, "card": card}))
+    results = check_speed5_kernels(cap.calls, counts, NFRAMES)
+    print(json.dumps({"speed5_cdef_route": time_cdef_route(cap.calls),
+                      "card": card}))
+    t1 = time.perf_counter()
+    summary = check_output(data, recon, fes, FILTER_FRAMES)
+    summary["lr_units"] = lr_units(fes)
+    print(json.dumps({"speed5_output": summary, "bytes": sum(map(len, data)),
+                      "check_s": time.perf_counter() - t1}))
+
+    # content whose chroma follows its luma: CFL wins blocks
+    cfl_frames = make_frames_cfl(W, H, CFL_FRAMES)
+    c_data, c_recon, c_fes = encode(cfl_frames, check=True, speed=5)
+    cfl_blocks = encode.cfl_blocks
+    c_summary = check_output(c_data, c_recon, c_fes, 0)
+    c_summary.update(rederive_cfl(c_fes))
+    print(json.dumps({"speed5_cfl_content": {
+        "frames": CFL_FRAMES, "cfl_blocks": cfl_blocks,
+        "cfl_blocks_bench_content": cfl_bench, "output": c_summary}}))
+    if cfl_blocks + cfl_bench == 0 or c_summary["cfl_sbs_rederived"] == 0:
+        raise RuntimeError("no block chose CFL on the speed-5 path")
+
+    t2 = time.perf_counter()
+    data2, _, _ = encode(frames[:KEY_TIMED], check=False, speed=5)
+    torch.cuda.synchronize()
+    t_enc = time.perf_counter() - t2
+    if data2 != data[:KEY_TIMED]:
+        raise RuntimeError("the second speed-5 encode wrote other bytes")
+    print(json.dumps({"speed5_encode": {
+        "frames": KEY_TIMED, "size": f"{W}x{H}", "seconds": t_enc,
+        "fps": KEY_TIMED / t_enc, "stages_s": encode.stages, "card": card}}))
+
+    # the small-frame route: the sampled host CDEF search and
+    # cdef_frame_device (coded area under 640x480)
+    kernels.reset_counts()
+    s_cap = Capture()
+    try:
+        s_data, s_recon, s_fes = encode(make_frames(320, 240, 1), check=True,
+                                        speed=5, size=(320, 240))
+    finally:
+        s_cap.restore()
+    s_counts = dict(kernels.COUNTS)
+    if not (s_counts["cdef_dir"] and s_counts["cdef_filter"]) or \
+            s_counts["deblock"] or s_counts["wiener_solve"]:
+        raise RuntimeError(f"the 320x240 speed-5 key frame launched "
+                           f"{s_counts}")
+    print(json.dumps({"speed5_small": {
+        "launches": s_counts, "bytes": sum(map(len, s_data)),
+        "cdef_frame_route": time_cdef_frame(s_cap.calls),
+        "output": check_output(s_data, s_recon, s_fes, 1), "card": card}}))
+
+    # 1 key + 3 inter frames at speed 5 (the inter pass; the same host
+    # filter path)
+    kernels.reset_counts()
+    g_frames = make_frames(W, H, GOP5_FRAMES)
+    t3 = time.perf_counter()
+    g_data, g_recon, g_fes = encode(g_frames, check=True, mixed=True,
+                                    speed=5)
+    torch.cuda.synchronize()
+    t_gop = time.perf_counter() - t3
+    g_counts = dict(kernels.COUNTS)
+    types = encode.frame_types
+    if types != ["key"] + ["inter"] * (GOP5_FRAMES - 1) or \
+            sum(fe._chk_wf.has_mv for fe in g_fes) != GOP5_FRAMES - 1:
+        raise RuntimeError(f"speed-5 GOP frame types {types}")
+    if not (g_counts["mc_pred"] and g_counts["me_fullpel"]
+            and g_counts["cfl"]):
+        raise RuntimeError(f"speed-5 GOP launches {g_counts}")
+    print(json.dumps({"speed5_gop": {
+        "frames": GOP5_FRAMES, "seconds": t_gop, "launches": g_counts,
+        "output": check_output(g_data, g_recon, g_fes, 1), "card": card}}))
     return results
 
 
@@ -1116,6 +1458,7 @@ def main() -> int:
     print(json.dumps({"cdef_decide": time_cdef_decide(cap.calls),
                       "card": card}))
     results += mixed_gop(card)
+    results += speed5(card)
     print(json.dumps({"parity": {r["name"]: r["max_abs_err"]
                                  for r in results}}))
     if any(m == "jax" or m.startswith("jax.") or m == "rav1e_tpu"

@@ -7,16 +7,24 @@ keeps its own copies of the host modules it needs.
 - device compute: PyTorch glue over hand-written CUDA kernels for Hopper
   (csrc/: intra prediction, forward transform + quantiser, inverse
   transform, deblock, CDEF directions and filter, Wiener tap solve and
-  filter), each with a plain PyTorch version that runs when the tensors
-  lie on the CPU;
+  filter, motion compensation, motion search, chroma-from-luma), each
+  with a plain PyTorch version that runs when the tensors lie on the CPU;
 - host native path: the C++ MSAC entropy coder + block coder
   (native/*.cc, built by ec/native.py into the port's build directory);
 - orchestration: Config / Context / FrameEncoder as in the JAX package.
 
-Ported so far: key frames at the speed-6 defaults (CDEF search and apply,
-fused Wiener loop restoration) and with either filter off.  Inter frames,
-the speed <= 5 filter searches (SGR, the deblock level search) and
-multi-GPU sharding raise NotImplementedError.
+Ported so far: low-latency encodes (key frames, P frames from LAST) at the
+speed-6 defaults (CDEF search and apply, fused Wiener loop restoration),
+with either filter off, and at speed 5 (CFL in the wavefront pass, the
+host deblock level search, the CDEF search outside the device chain, the
+SGR and per-unit Wiener loop-restoration search).  What raises
+NotImplementedError names its ROADMAP queue 1 item: the host inter paths
+of the default configuration (low_latency=False: pyramid,
+multi-reference and compound frames) and of frames outside the inter
+wavefront, intra frames of 320x240 and up outside the wavefront
+(frame_rd_maps), the loop-restoration decision outside the chain
+(lr_decide_device) and 8x8 wavefront leaves (speed <= 3): item 10;
+tile-sharded and multi-GPU encodes: item 11.
 
 Layout:
   api/      Config / Context / EncoderStatus public API

@@ -22,6 +22,11 @@
 // s1 + lam * rate < s0 in float32, and en.  The restored samples are
 // written first; a unit that keeps the CDEF output rewrites them.
 //
+// Frame mode (choice == nullptr; src, en, lam and rate unused): the whole
+// restored plane with the given taps and stripe size, no sums and no
+// choice.  It replaces rav1e_tpu/ops/lrf_jax.py:43 _jitted (called by
+// :254 wiener_filter_frame_device), the host LR search's trial filter.
+//
 // Bound on the H100: bytes (the CDEF output and the source read, the
 // deblocked plane only in the rows the stripe rule takes, one plane
 // written; ~42 integer operations a sample).
@@ -79,6 +84,7 @@ wiener_lr_kernel(const int32_t *__restrict__ cd, int scd,
     }
     // 8-bit: round0 = 3, round1 = 11 (lrf_np.wiener_filter_frame)
     const int off_h = 1 << 14, limit = (1 << 13) - 1, off_v = 1 << 18;
+    const bool frame = choice == nullptr;
     int s0 = 0, s1 = 0;
     for (int a = y0; a < y1;) {
         const int sidx = (a + off) / unit;
@@ -115,15 +121,17 @@ wiener_lr_kernel(const int32_t *__restrict__ cd, int scd,
 #pragma unroll
             for (int t = 0; t < 7; t++) s += vf[t] * hor[(r + t) * uw + xc];
             const int rest = min(max((s + (1 << 10)) >> 11, 0), 255);
+            out[(size_t)y * ww + x] = rest;
+            if (frame) continue;
             const int sv = src[(size_t)y * ssrc + x];
             const int base = cd[(size_t)y * scd + x];
             s0 += (base - sv) * (base - sv);
             s1 += (rest - sv) * (rest - sv);
-            out[(size_t)y * ww + x] = rest;
         }
         __syncthreads();
         a = b;
     }
+    if (frame) return;  // uniform across the CTA
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     s0 = warp_sum(s0);
     s1 = warp_sum(s1);

@@ -25,13 +25,15 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 KERNELS = ("intra_pred", "fwd_txq", "inv_txfm", "deblock", "cdef_dir",
-           "cdef_filter", "wiener_solve", "wiener_lr", "mc_pred", "me_fullpel")
+           "cdef_filter", "wiener_solve", "wiener_lr", "mc_pred", "me_fullpel",
+           "cfl")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-# one counter per kernel, and "fwd_txq_thin" for fwd_txq's launches with
-# the level-1 thinning of the inter race
-COUNTS = {k: 0 for k in KERNELS + ("fwd_txq_thin",)}
+# one counter per kernel, "fwd_txq_thin" for fwd_txq's launches with the
+# level-1 thinning of the inter race and "wiener_lr_frame" for wiener_lr's
+# launches in frame mode (the whole restored plane, no unit choice)
+COUNTS = {k: 0 for k in KERNELS + ("fwd_txq_thin", "wiener_lr_frame")}
 # nvcc's output of the last build of each kernel (ptxas: registers, spills)
 BUILD_LOGS: dict = {}
 _LIBS: dict = {}
@@ -57,12 +59,13 @@ ARGTYPES = {
     "mc_pred": [_vp, _ci, _ci, _ci, _ci, _vp, _vp, _vp, _vp, _ci, _ci, _ci,
                 _ci, _ci, _vp, _vp, _vp],
     "me_fullpel": [_vp, _ci, _vp, _ci, _ci, _ci, _vp, _vp, _vp],
+    "cfl": [_vp, _ci, _ci, _vp, _vp, _ci, _vp, _vp, _vp, _vp],
 }
 _ENTRY = {"intra_pred": "intra_pred", "fwd_txq": "fwd_txq",
           "inv_txfm": "inv_txfm", "deblock": "deblock_pass",
           "cdef_dir": "cdef_dir", "cdef_filter": "cdef_filter",
           "wiener_solve": "wiener_solve", "wiener_lr": "wiener_lr",
-          "mc_pred": "mc_pred", "me_fullpel": "me_fullpel"}
+          "mc_pred": "mc_pred", "me_fullpel": "me_fullpel", "cfl": "cfl"}
 
 
 def reset_counts() -> None:

@@ -16,12 +16,19 @@ the reconstruction of every full superblock.  The host then
     search seeded by the device ME map), pushing every decision into the
     native BlockCache next to the device SBs' records;
   - replays everything through the C++ inter SB walker
-    (encode_inter_sb_cached) in pass B, after the device filter chain.
+    (encode_inter_sb_cached) in pass B, after the in-loop filters: the
+    device filter chain at speed 6, and at speed 5 the host filter path
+    the key frames take (the deblock level search, the CDEF search
+    outside the chain, the SGR and per-unit Wiener LR search), inherited
+    from IntraFrameEncoder.  The inter pass tries no CFL, as in the JAX
+    package (wavefront._pass_flags).
 
 The host search paths of the JAX package that this path does not reach
-(ME maps for frames outside the device envelope, the interpolation
-filter probe, partition and merge trials, compound and multi-reference
-prediction) raise NotImplementedError naming ROADMAP queue 1 item 10.
+raise NotImplementedError naming ROADMAP queue 1 item 10: the host inter
+path of frames outside the inter wavefront (no full superblock,
+segmentation, the default configuration's pyramid and multi-reference
+frames), the diamond search without a device ME map, partition-trial
+replays and compound prediction.
 """
 
 from __future__ import annotations

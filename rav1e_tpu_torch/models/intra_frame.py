@@ -28,6 +28,11 @@ _TBL = np.load(__file__.rsplit("/", 2)[0] + "/ops/av1_tables.npz")
 
 # partition context bytes (above, left) per block size, from the AV1 spec
 # (verified against the libaom binary's partition_context_lookup)
+# below this coded area CDEF after the host deblock search takes the
+# sampled host search (_cdef_search) and the device apply, as the JAX
+# package does (its upload overhead beat its win there on the TPU)
+DEV_CDEF_MIN_AREA = 640 * 480
+
 _PART_CTX = {4: (31, 31), 8: (30, 30), 16: (28, 28), 32: (24, 24), 64: (16, 16)}
 _PART_CTX_RECT = {
     (4, 4): (31, 31), (4, 8): (31, 30), (8, 4): (30, 31), (8, 8): (30, 30),
@@ -237,15 +242,6 @@ class IntraFrameEncoder:
         returns immediately under JAX async dispatch).  launch=False does
         the host setup only — the caller attaches a (batched) wavefront
         handle to _wf_launched itself (pipeline.prefetch_key_frames)."""
-        if self.lrf and self.sgr_search:
-            raise NotImplementedError(
-                "loop restoration with the SGR search and per-unit Wiener "
-                "taps (speed <= 5): ROADMAP queue 1 item 10")
-        if (self.lrf or self.cdef_damping) and self.lf_search \
-                and any(self.lf_levels):
-            raise NotImplementedError(
-                "CDEF and loop restoration after the host deblock search "
-                "(speed <= 5): ROADMAP queue 1 item 10")
         w, h, bd = self.w, self.h, self.bd
         # pad source planes to coded (mi-aligned) dims by edge replication
         self.src = []
@@ -444,20 +440,50 @@ class IntraFrameEncoder:
             data2 = self._finish_lr(data)
             return data2
         if self.lf_search and any(self.lf_levels):
-            self.lf_levels = self._deblock_search()
+            with self.stats.stage("deblock_search"):
+                self.lf_levels = self._deblock_search()
         if any(self.lf_levels):
             from rav1e_tpu_torch.ops.deblock_np import deblock_frame
 
-            deblock_frame(self.rec, self.db_info, self.lf_levels,
-                          self.lf_sharpness, self.bd, self.coded_w,
-                          self.coded_h, sub_x=self.sub_x, sub_y=self.sub_y)
+            with self.stats.stage("deblock_host"):
+                deblock_frame(self.rec, self.db_info, self.lf_levels,
+                              self.lf_sharpness, self.bd, self.coded_w,
+                              self.coded_h, sub_x=self.sub_x,
+                              sub_y=self.sub_y)
+        if self.lrf:
+            # LR stripe boundaries read the pre-CDEF (deblocked) rows
+            self._deblock_copy = [p.copy() for p in self.rec]
         self.cdef_strengths = None
         self.cdef_sb = None
+        self._dev_db = self._dev_cdef = None
+        self._dev_db_c = self._dev_cdef_c = None
         if self.cdef_damping:
-            raise NotImplementedError(
-                "CDEF on the host filter path (search and apply outside the "
-                "device chain): ROADMAP queue 1 item 10")
+            self._cdef_host()
         return self._finish_lr(data)
+
+    def _cdef_host(self) -> None:
+        """CDEF after the host deblock: the search and apply on the device
+        at 640x480 and up, else the sampled host search and the device
+        apply with its strengths."""
+        from rav1e_tpu_torch.ops import cdef
+
+        with self.stats.stage("cdef_host"):
+            if (self.device_modes
+                    and self.coded_w * self.coded_h >= DEV_CDEF_MIN_AREA):
+                (self.cdef_strengths, (self._dev_db, self._dev_cdef),
+                 self.cdef_sb) = cdef.cdef_search_apply_device(
+                    self.rec, self.src, self.db_info.skip, self.cdef_damping,
+                    self.bd, self.coded_w, self.coded_h,
+                    sb_lam=(self.lam if self.lrf else None),
+                    device=self.device)
+            else:
+                self.cdef_strengths = self._cdef_search()
+                y_s, uv_s = self.cdef_strengths
+                cdef.cdef_frame_device(
+                    self.rec, self.db_info.skip, y_s >> 2,
+                    [0, 1, 2, 4][y_s & 3], uv_s >> 2, [0, 1, 2, 4][uv_s & 3],
+                    self.cdef_damping, self.bd, self.coded_w, self.coded_h,
+                    device=self.device)
 
     def _finish_lr(self, data):
         """Loop restoration + output crop (shared by the host filter path
@@ -695,6 +721,7 @@ class IntraFrameEncoder:
                 self._lr_ref = [[3, -7, 15], [3, -7, 15]]
                 self._lr_ref_c = {p: [[3, -7, 15], [3, -7, 15]]
                                   for p in (1, 2)}
+                self._sgr_ref = [-32, 31]
             # replay pass: the whole SB (partition symbols + cached block
             # symbols) runs in C++; python only interleaves read_lr
             fast = (self._lr_replay and self._nbc is not None
@@ -998,21 +1025,98 @@ class IntraFrameEncoder:
 
     LR_UNIT = 64  # luma restoration unit size (lr_unit_shift = 0)
 
-    def _lr_decide(self) -> None:
-        """Per-unit restoration decision (SWITCHABLE luma, RESTORE_WIENER
-        chroma): none vs Wiener with one frame-level tap set per plane,
-        taken from the device filter chain's fused LR stage.
+    # SGR parameter sets tried per unit (encoder choice; kept small on the
+    # host path — reference analog: sgr_complexity Reduced)
+    SGR_CANDIDATE_SETS = (4, 11)
 
-        Wiener units share the frame taps so every unit after the first
-        codes its coefficients equal to the running reference (v == ref
-        subexp path).  The host search (SGRPROJ, per-unit taps; speed <= 5)
-        is not ported."""
+    def _lr_decide(self) -> None:
+        """Per-unit restoration decision (SWITCHABLE): none vs Wiener
+        (one frame-level tap set, solved over the luma plane) vs SGRPROJ
+        (per-unit projection weights over candidate parameter sets).
+
+        With the SGR search (speed <= 5) every unit also tries its own
+        Wiener taps (thorough mode) and the SGR parameter sets
+        SGR_CANDIDATE_SETS, all on the host (lrf_np, sgr_np) but for the
+        frame taps' trial filter (ops/lrf.py, K8 in frame mode); chroma
+        takes _lr_decide_chroma.  Without it the decision is the device
+        filter chain's fused LR stage (_lr_decide_fused)."""
+        from rav1e_tpu_torch.ops import lrf
+        from rav1e_tpu_torch.ops import lrf_np as lr
+        from rav1e_tpu_torch.ops import sgr_np as sg
+
         self._lr_params = {}
         if not self.sgr_search and self._lr_decide_fused():
             return
-        raise NotImplementedError(
-            "the host loop-restoration search (SGR, per-unit Wiener taps; "
-            "speed <= 5): ROADMAP queue 1 item 10")
+        rows = lr.unit_ranges(self.LR_UNIT, self.out_h, shifted=True)
+        cols = lr.unit_ranges(self.LR_UNIT, self.out_w)
+        cdef_p = self.rec[0]
+        # device filter chain may keep the deblocked plane device-resident
+        # only (_dev_db); the host copy is None then
+        db_p = (self._deblock_copy[0]
+                if self._deblock_copy is not None else None)
+        with self.stats.stage("lr_solve_y"):
+            src_f = self.src[0][: self.out_h, : self.out_w].astype(np.float64)
+            vt, ht = lr.solve_wiener(
+                cdef_p[: self.out_h, : self.out_w].astype(np.float64), src_f
+            )
+        restored = None
+        if vt != (0, 0, 0) or ht != (0, 0, 0):
+            with self.stats.stage("lr_trial_y"):
+                restored = lrf.wiener_filter_frame_device(
+                    cdef_p, db_p, vt, ht, 64, self.bd, self.out_w, self.out_h,
+                    dev_cdef=getattr(self, "_dev_cdef", None),
+                    dev_db=getattr(self, "_dev_db", None),
+                    device=self.device)
+        # guided-pass outputs for the SGR candidate sets (whole frame; the
+        # per-unit choice is only the set + projection weights)
+        sgr_flt = {}
+        if self.sgr_search:
+            for si in self.SGR_CANDIDATE_SETS:
+                sgr_flt[si] = sg.sgr_flt_frame(cdef_p, db_p, si, self.bd,
+                                               self.out_w, self.out_h)
+        # whole-plane squared-error maps once; the unit loop only slices
+        src_i = self.src[0][: self.out_h, : self.out_w].astype(np.int64)
+        d2_base = (cdef_p[: self.out_h, : self.out_w].astype(np.int64)
+                   - src_i) ** 2
+        d2_rest = None
+        if restored is not None:
+            d2_rest = (restored.astype(np.int64) - src_i) ** 2
+        for ur, (y0, y1) in enumerate(rows):
+            for uc, (x0, x1) in enumerate(cols):
+                best = int(d2_base[y0:y1, x0:x1].sum())
+                choice = None
+                if restored is not None:
+                    sse1 = int(d2_rest[y0:y1, x0:x1].sum()) + self.lam * 12
+                    if sse1 < best:
+                        best = sse1
+                        choice = ("wiener", vt, ht, restored[y0:y1, x0:x1])
+                if self.sgr_search or sgr_flt:
+                    src = src_i[y0:y1, x0:x1]
+                    base = cdef_p[y0:y1, x0:x1].astype(np.int64)
+                if self.sgr_search:
+                    # per-unit Wiener taps (thorough mode)
+                    uvt, uht = lr.solve_wiener(base.astype(np.float64),
+                                               src.astype(np.float64))
+                    if (uvt, uht) != ((0, 0, 0), (0, 0, 0)) and (uvt, uht) != (vt, ht):
+                        out = lr.wiener_filter_unit(
+                            cdef_p, db_p, x0, y0, x1, y1, uvt, uht, 64,
+                            self.bd, self.out_w, self.out_h)
+                        ss = int(((out - src) ** 2).sum()) + self.lam * 30
+                        if ss < best:
+                            best = ss
+                            choice = ("wiener", uvt, uht, out)
+                for si, (f0, f1) in sgr_flt.items():
+                    f0u = f0[y0:y1, x0:x1] if f0 is not None else None
+                    f1u = f1[y0:y1, x0:x1] if f1 is not None else None
+                    xqd = sg.solve_xqd(base, src, f0u, f1u, si)
+                    out = sg.sgr_apply(base, f0u, f1u, xqd, si, self.bd)
+                    ss = int(((out - src) ** 2).sum()) + self.lam * 18
+                    if ss < best:
+                        best = ss
+                        choice = ("sgr", si, tuple(xqd), out)
+                self._lr_params[(ur, uc)] = choice
+        with self.stats.stage("lr_chroma"):
+            self._lr_decide_chroma()
 
     def _lr_decide_fused(self) -> bool:
         """Fused device LR decision (speed-6 flow: none-vs-Wiener with
@@ -1067,6 +1171,66 @@ class IntraFrameEncoder:
             "the loop-restoration decision outside the device filter chain "
             "(lrf_jax.lr_decide_device): ROADMAP queue 1 item 10")
 
+    def _lr_decide_chroma(self) -> None:
+        """Chroma restoration (reference: src/lrf.rs restores all 3
+        planes): frame-level Wiener taps per chroma plane (tap 0 is 0 by
+        spec), RESTORE_WIENER plane type with a per-unit on/off bool.
+        4:2:0 with lr_uv_shift=1: chroma units cover the same picture area
+        as the luma units."""
+        from rav1e_tpu_torch.ops import lrf
+        from rav1e_tpu_torch.ops import lrf_np as lr
+
+        self._lr_chroma = {1: {}, 2: {}}
+        self._lr_chroma_taps = {}
+        self.lr_types = [1, 0, 0]
+        if not self._is420:
+            return
+        unit_c = self.LR_UNIT >> 1
+        cw = (self.out_w + 1) >> 1
+        ch = (self.out_h + 1) >> 1
+        rows_c = lr.unit_ranges(unit_c, ch, shifted=True)
+        cols_c = lr.unit_ranges(unit_c, cw)
+        dev_db_c = getattr(self, "_dev_db_c", None)
+        dev_cdef_c = getattr(self, "_dev_cdef_c", None)
+        for plane in (1, 2):
+            cdef_c = self.rec[plane]
+            db_c = (self._deblock_copy[plane]
+                    if self._deblock_copy is not None else None)
+            src_i = self.src[plane][:ch, :cw].astype(np.int64)
+            vtc, htc = lr.solve_wiener(
+                cdef_c[:ch, :cw].astype(np.float64), src_i.astype(np.float64))
+            vtc = (0, int(vtc[1]), int(vtc[2]))  # chroma outer tap is 0
+            htc = (0, int(htc[1]), int(htc[2]))
+            if vtc == (0, 0, 0) and htc == (0, 0, 0):
+                continue
+            # the trial filter on the device (K8 in frame mode)
+            restored = lrf.wiener_filter_frame_device(
+                cdef_c[:ch, :cw],
+                db_c[:ch, :cw] if db_c is not None else None,
+                vtc, htc, unit_c, self.bd, cw, ch,
+                dev_cdef=(dev_cdef_c[plane - 1]
+                          if dev_cdef_c is not None else None),
+                dev_db=(dev_db_c[plane - 1]
+                        if dev_db_c is not None else None),
+                device=self.device)
+            d2_base = (cdef_c[:ch, :cw].astype(np.int64) - src_i) ** 2
+            d2_rest = (restored.astype(np.int64) - src_i) ** 2
+            units = {}
+            any_used = False
+            for ur, (y0, y1) in enumerate(rows_c):
+                for uc, (x0, x1) in enumerate(cols_c):
+                    sse0 = int(d2_base[y0:y1, x0:x1].sum())
+                    sse1 = int(d2_rest[y0:y1, x0:x1].sum()) + self.lam * 9
+                    if sse1 < sse0:
+                        units[(ur, uc)] = restored[y0:y1, x0:x1]
+                        any_used = True
+                    else:
+                        units[(ur, uc)] = None
+            if any_used:
+                self._lr_chroma[plane] = units
+                self._lr_chroma_taps[plane] = (vtc, htc)
+                self.lr_types[plane] = 2  # coded RESTORE_WIENER
+
     def _lr_apply(self) -> None:
         from rav1e_tpu_torch.ops import lrf_np as lr
 
@@ -1095,11 +1259,11 @@ class IntraFrameEncoder:
 
     def _lr_write(self, enc, sb_row: int, sb_col: int) -> None:
         """read_lr for one superblock (spec 5.11.57), luma SWITCHABLE frame
-        restoration type (none / wiener per unit: the fused chain decides
-        no sgrproj unit); planes 1/2 a per-unit flag and taps where the
-        frame restores them."""
+        restoration type (none / wiener / sgrproj per unit); planes 1/2 a
+        per-unit flag and taps where the frame restores them."""
         from rav1e_tpu_torch.entropy import subexp as se
         from rav1e_tpu_torch.ops import lrf_np as lr
+        from rav1e_tpu_torch.ops import sgr_np as sg
 
         unit = self.LR_UNIT
         n_rows = lr.count_units(unit, self.out_h)
@@ -1113,7 +1277,7 @@ class IntraFrameEncoder:
             for uc in range(uc0, uc1):
                 p = self._lr_params.get((ur, uc))
                 kind = p[0] if p is not None else "none"
-                sym = {"none": 0, "wiener": 1}[kind]
+                sym = {"none": 0, "wiener": 1, "sgr": 2}[kind]
                 enc.symbol_adapt(sym, self.cdf.switchable_restore[0])
                 if kind == "wiener":
                     _, vt, ht, _ = p
@@ -1124,6 +1288,23 @@ class IntraFrameEncoder:
                                 lr.WIENER_TAPS_MAX[i] + 1, lr.WIENER_TAPS_K[i],
                                 int(self._lr_ref[pass_i][i]))
                             self._lr_ref[pass_i][i] = int(taps[i])
+                elif kind == "sgr":
+                    _, si, xqd, _ = p
+                    enc.literal(si, 4)
+                    r0, r1 = sg.sgr_radii(si)
+                    for i, radius in ((0, r0), (1, r1)):
+                        if radius:
+                            se.write_signed_subexp_with_ref(
+                                enc, int(xqd[i]), sg.XQD_MIN[i],
+                                sg.XQD_MAX[i] + 1, sg.SGRPROJ_PRJ_SUBEXP_K,
+                                int(self._sgr_ref[i]))
+                            self._sgr_ref[i] = int(xqd[i])
+                        else:
+                            # not coded; the decoder derives the value
+                            # (0, or clip(128 - xqd0) for i == 1) and updates
+                            # its reference with it — solve_xqd stores the
+                            # same derived values in xqd
+                            self._sgr_ref[i] = int(xqd[i])
         # chroma planes (RESTORE_WIENER): per-unit on/off bool + taps
         # (tap 0 implied zero for chroma; spec read_lr plane-major order)
         lr_types = getattr(self, "lr_types", [1, 0, 0])
@@ -1199,6 +1380,7 @@ class IntraFrameEncoder:
             self._lr_ref = [list(lr_default) for lr_default in
                             ((3, -7, 15), (3, -7, 15))]
             self._lr_ref_c = {p: [[3, -7, 15], [3, -7, 15]] for p in (1, 2)}
+            self._sgr_ref = [-32, 31]
             rec.replay(enc, self.cdf, lr_insert=self._lr_write,
                        cdef_insert=self._cdef_write)
             tile_datas.append(enc.done())
@@ -1366,6 +1548,90 @@ class IntraFrameEncoder:
         of splitting.  Base intra encoder never merges (the wavefront/device
         analysis operates on the 32x32 grid)."""
         return False
+
+    def _cdef_search(self) -> tuple:
+        """Pick one (luma, chroma) CDEF strength pair for the frame
+        (cdef_bits=0) by SSE vs source on sampled 8x8 blocks.
+        Reference analog: rdo_loop_decision's CDEF strength search."""
+        from rav1e_tpu_torch.ops import cdef_np as cd
+
+        pad = 3
+        w, h = self.coded_w, self.coded_h
+        src_pad = []
+        for p, plane in enumerate(self.rec):
+            sx = 0 if p == 0 else self.sub_x
+            sy = 0 if p == 0 else self.sub_y
+            s = np.full(((h >> sy) + 2 * pad, (w >> sx) + 2 * pad),
+                        cd.CDEF_VERY_LARGE, np.int32)
+            s[pad : pad + (h >> sy), pad : pad + (w >> sx)] = plane[: h >> sy, : w >> sx]
+            src_pad.append(s)
+        # stratified sample of non-skip 8x8 blocks
+        blocks = []
+        for by in range(0, h, 8):
+            for bx in range(0, w, 8):
+                if not self.db_info.skip[by // 4 : by // 4 + 2, bx // 4 : bx // 4 + 2].all():
+                    blocks.append((by, bx))
+        if not blocks:
+            return (0, 0)
+        step = max(1, len(blocks) // 96)
+        sample = blocks[::step]
+        dirs = {}
+        for by, bx in sample:
+            dirs[(by, bx)] = cd.find_dir_block(
+                src_pad[0][pad + by : pad + by + 8, pad + bx : pad + bx + 8], self.bd
+            )
+
+        damping = self.cdef_damping + (self.bd - 8)
+
+        def sse_y(pri, sec):
+            total = 0
+            for by, bx in sample:
+                d, var = dirs[(by, bx)]
+                pa = cd.adjust_strength(pri << (self.bd - 8), var) if pri else 0
+                if pa or sec:
+                    out = cd.cdef_filter_block(
+                        src_pad[0], by, bx, 8, 8, pa, sec << (self.bd - 8),
+                        damping, d, self.bd, pad)
+                else:
+                    out = src_pad[0][pad + by : pad + by + 8, pad + bx : pad + bx + 8]
+                ref = self.src[0][by : by + 8, bx : bx + 8]
+                diff = out.astype(np.int64) - ref
+                total += int((diff * diff).sum())
+            return total
+
+        def sse_uv(pri, sec):
+            total = 0
+            for by, bx in sample:
+                d, _ = dirs[(by, bx)]
+                cy, cx = by >> 1, bx >> 1
+                for p in (1, 2):
+                    if pri or sec:
+                        out = cd.cdef_filter_block(
+                            src_pad[p], cy, cx, 4, 4, pri << (self.bd - 8),
+                            sec << (self.bd - 8), damping - 1, d,
+                            self.bd, pad)
+                    else:
+                        out = src_pad[p][pad + cy : pad + cy + 4, pad + cx : pad + cx + 4]
+                    ref = self.src[p][cy : cy + 4, cx : cx + 4]
+                    diff = out.astype(np.int64) - ref
+                    total += int((diff * diff).sum())
+            return total
+
+        best_y, best_cost = 0, None
+        for pri in (0, 1, 2, 4):
+            for sec in (0, 2):
+                cost = sse_y(pri, sec)
+                code = (pri << 2) | (3 if sec == 4 else sec)
+                if best_cost is None or cost < best_cost:
+                    best_y, best_cost = code, cost
+        best_uv, best_cost = 0, None
+        for pri in (0, 1, 2):
+            for sec in (0,):
+                cost = sse_uv(pri, sec)
+                code = (pri << 2) | sec
+                if best_cost is None or cost < best_cost:
+                    best_uv, best_cost = code, cost
+        return (best_y, best_uv)
 
     # -- RD partition decision -------------------------------------------------
 

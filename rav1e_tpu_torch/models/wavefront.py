@@ -1,8 +1,8 @@
 """Wavefront device encode of key frames and P frames, in PyTorch on the GPU.
 
-Counterpart of rav1e_tpu/models/wavefront.py (no CFL, no 8x8 split): the
-keyframe pass, and with inter_on the P-frame pass of single-LAST-reference
-frames.  rav1e walks superblocks serially
+Counterpart of rav1e_tpu/models/wavefront.py (no 8x8 split): the
+keyframe pass, with CFL at speed <= 5, and with inter_on the P-frame pass
+of single-LAST-reference frames.  rav1e walks superblocks serially
 because intra prediction consumes reconstructed neighbours and the entropy
 coder is adaptive.  Here the two concerns are split:
 
@@ -11,8 +11,9 @@ coder is adaptive.  Here the two concerns are split:
      above-right / below-left dependencies all land in earlier steps).
      Each step runs the full coding datapath for a batch of SBs: exact
      edge build, all intra predictors (K1), the SAD angle-delta pick, the
-     13-mode tx-domain RD race and the 5-type luma tx race (K2), the uv
-     race, bit-exact inverse transforms (K3) and in-carry reconstruction,
+     13-mode tx-domain RD race and the 5-type luma tx race (K2), CFL
+     against DC (K11, K2, K3) and the uv race, bit-exact inverse
+     transforms (K3) and in-carry reconstruction,
      the NONE-vs-SPLIT decisions at 32 and 16 and the 64x64 root trial.
      With inter_on, phase A runs before the scan: the full-pel motion
      search (K10), 8/8/6 motion vector candidates a block at the 64, 32
@@ -283,15 +284,13 @@ class WavefrontPass(torch.nn.Module):
                  mode_mask, mi_cols, mi_rows, allow_split, allow_split8,
                  uv_search, allow_n64, inter_on, device="cuda"):
         super().__init__()
-        if cfl_on:
-            raise NotImplementedError(
-                "CFL in the wavefront (speed <= 5): ROADMAP queue 1 item 10")
         if allow_split8:
             raise NotImplementedError(
                 "8x8 wavefront leaves (speed <= 3): ROADMAP queue 1 item 10")
         self.Hp, self.Wp, self.K, self.B, self.bd = Hp, Wp, K, B, bd
         self.R, self.C = Hp // 64, Wp // 64
         self.tx_search, self.fine_dir = tx_search, fine_dir
+        self.cfl_on = cfl_on
         self.allow_split, self.uv_search = allow_split, uv_search
         self.allow_n64 = allow_n64
         self.inter_on = inter_on
@@ -381,13 +380,16 @@ class WavefrontPass(torch.nn.Module):
         return ((a - b).to(torch.float32) ** 2).sum((-1, -2))
 
     def chroma(self, ctxU, ctxV, src_u, src_v, ly2, lx2, n2, ha, hl, lam,
-               qdc, qac, mode, tabs):
-        """uv-mode race for both chroma planes (DC alone when uv_search is
-        off): returns per plane (pred, levels, dequant, inverse) of the
-        winner, the uv mode id, and the per-plane rates."""
+               qdc, qac, mode, tabs, recon_y):
+        """The chroma of a leaf (wavefront.py:700-830): DC for both planes,
+        with cfl_on CFL against DC (the CFL arm), then with uv_search the
+        uv-mode race, whose non-DC winner overrides.  Returns per plane
+        (pred, levels, inverse) of the outcome (B, 2, ...), the uv mode
+        id, the per-plane coefficient rates and the CFL alphas (B, 2)."""
         bd = self.bd
         Bn = ha.shape[0]
-        zero = torch.zeros((Bn,), dtype=torch.int32, device=ha.device)
+        dev = ha.device
+        zero = torch.zeros((Bn,), dtype=torch.int32, device=dev)
         ncand = 7 if self.uv_search else 1
         preds = []
         for ctx in (ctxU, ctxV):
@@ -395,8 +397,8 @@ class WavefrontPass(torch.nn.Module):
                                       zero)
             preds.append(ij.intra_pred(ab, lf, ha, hl, n2, False, bd)[:, :ncand])
         pred = torch.stack(preds, 1)  # (B, 2, C, n2, n2)
-        src = torch.stack([src_u, src_v], 1)[:, :, None]
-        resid = src - pred
+        src = torch.stack([src_u, src_v], 1)
+        resid = src[:, :, None] - pred
         q = lambda v: v[:, None, None].expand(Bn, 2, ncand)
         keys = self.uv_keys[:ncand].expand(Bn, 2, ncand)
         if self.uv_search:
@@ -408,9 +410,19 @@ class WavefrontPass(torch.nn.Module):
                                         tidx=keys, bit_depth=bd)
         inv = tt.inv_txfm(dq, self.uv_types[:ncand].expand(Bn, 2, ncand)
                           if self.uv_search else tn.DCT_DCT, bd)
+        dd = self._sse(resid, inv)  # (B, 2, C)
+        # the DC outcome (chroma_dc), which CFL may replace plane by plane
+        out_p, out_l, out_i, out_r = (pred[:, :, 0], lv[:, :, 0],
+                                      inv[:, :, 0], rate[:, :, 0])
+        alpha = torch.zeros((Bn, 2), dtype=torch.int32, device=dev)
+        uv_mode = torch.zeros_like(mode)
+        if self.cfl_on:
+            out_p, out_l, out_i, out_r, alpha, uv_mode = self._cfl(
+                recon_y, out_p, src, out_l, out_i, out_r,
+                dd[:, :, 0] + lam[:, None] * rate[:, :, 0], lam, qdc, qac,
+                mode, tabs)
         if self.uv_search:
             bits_uv14, _bs, _ba, bits_angle = tabs
-            dd = self._sse(resid, inv)  # (B, 2, C)
             costs = []
             for ci, (uvid, _t, _k) in enumerate(UV_CANDS):
                 tot = bits_uv14[mode, uvid] * lam
@@ -420,12 +432,62 @@ class WavefrontPass(torch.nn.Module):
                     tot = tot + dd[:, p, ci] + lam * rate[:, p, ci]
                 costs.append(tot)
             uvi = torch.argmin(torch.stack(costs, 1), dim=1)
-        else:
-            uvi = torch.zeros((Bn,), dtype=torch.long, device=ha.device)
-        ar = torch.arange(Bn, device=ha.device)
-        sel = lambda x: x[ar, :, uvi]  # (B, 2, ...)
-        return (sel(pred), sel(lv), sel(dq), sel(inv), self.uv_ids[uvi],
-                sel(rate))
+            # a non-DC winner overrides the DC/CFL outcome (CFL competes
+            # against DC only, the host _decide_chroma semantics)
+            non_dc = uvi > 0
+            ar = torch.arange(Bn, device=dev)
+            sel = lambda x, o: torch.where(
+                non_dc.reshape((Bn,) + (1,) * (o.dim() - 1)), x[ar, :, uvi],
+                o)
+            out_p, out_l, out_i, out_r = (sel(pred, out_p), sel(lv, out_l),
+                                          sel(inv, out_i), sel(rate, out_r))
+            uv_mode = torch.where(non_dc, self.uv_ids[uvi], uv_mode)
+            alpha = torch.where(non_dc[:, None], 0, alpha)
+        return out_p, out_l, out_i, uv_mode, out_r, alpha
+
+    def _cfl(self, recon_y, pred_dc, src, lv_dc, inv_dc, rate_dc_c, cost_dc,
+             lam, qdc, qac, mode, tabs):
+        """CFL against DC for both planes (wavefront.py:709-762): the AC
+        values, the alpha fit, the prediction and residual (K11), each
+        plane's transform (K2, K3) and RD cost, and the CFL-vs-DC choice
+        with the uv-mode, sign and alpha symbol rates.  A plane whose alpha
+        is 0 keeps DC.  Returns the chosen (pred, levels, inverse, rates)
+        per plane, the alphas and the uv mode id (13 where CFL won)."""
+        bd = self.bd
+        Bn = recon_y.shape[0]
+        n2 = pred_dc.shape[-1]
+        alpha, pc, rc = ij.cfl(recon_y, pred_dc, src, bd)
+        Fv, FhT = self.mats[n2]
+        q2 = lambda v: v[:, None].expand(Bn, 2)
+        lc, dqc, _t, ratec = tt.fwd_txq(rc, Fv, FhT, q2(qdc), q2(qac), 0,
+                                        bit_depth=bd)
+        ic = tt.inv_txfm(dqc, tn.DCT_DCT, bd)
+        cost_cfl = self._sse(rc, ic) + lam[:, None] * ratec  # (B, 2)
+        cost_cfl = torch.where(alpha == 0, cost_dc, cost_cfl)
+        bits_uv14, bits_sign, bits_alpha, _ang = tabs
+        a_u, a_v = alpha[:, 0].long(), alpha[:, 1].long()
+        # sign codes: 0 zero, 1 negative, 2 positive
+        su = torch.where(a_u == 0, 0, torch.where(a_u < 0, 1, 2))
+        sv = torch.where(a_v == 0, 0, torch.where(a_v < 0, 1, 2))
+        rate_dc = bits_uv14[mode, 0]
+        rate_cfl = bits_uv14[mode, 13] + bits_sign[
+            torch.clamp(su * 3 + sv - 1, min=0)]
+        rate_cfl = rate_cfl + torch.where(
+            su > 0, bits_alpha[torch.where(su == 2, 3, 0) + sv,
+                               torch.clamp(a_u.abs() - 1, min=0)], 0.0)
+        rate_cfl = rate_cfl + torch.where(
+            sv > 0, bits_alpha[torch.where(sv == 2, 3, 0) + su,
+                               torch.clamp(a_v.abs() - 1, min=0)], 0.0)
+        use_cfl = ((a_u != 0) | (a_v != 0)) & (
+            cost_cfl[:, 0] + cost_cfl[:, 1] + lam * rate_cfl
+            < cost_dc[:, 0] + cost_dc[:, 1] + lam * rate_dc)
+        take = use_cfl[:, None] & (alpha != 0)  # (B, 2)
+        t4 = take[:, :, None, None]
+        return (torch.where(t4, pc, pred_dc), torch.where(t4, lc, lv_dc),
+                torch.where(t4, ic, inv_dc),
+                torch.where(take, ratec, rate_dc_c),
+                torch.where(take, alpha, 0),
+                torch.where(use_cfl, 13, torch.zeros_like(mode)))
 
     def encode_leaf(self, ctxY, ctxU, ctxV, sYt, sUt, sVt, ly, lx, n, av4,
                     lam, qdc, qac, allow_z1, tabs, inter=None):
@@ -498,9 +560,9 @@ class WavefrontPass(torch.nn.Module):
         ly2, lx2 = ly >> 1, lx >> 1
         src_u = sUt[:, ly2 : ly2 + n2, lx2 : lx2 + n2]
         src_v = sVt[:, ly2 : ly2 + n2, lx2 : lx2 + n2]
-        pc, lc, _dqc, ic, uv_mode, rate_c = self.chroma(
+        pc, lc, ic, uv_mode, rate_c, alpha = self.chroma(
             ctxU, ctxV, src_u, src_v, ly2, lx2, n2, ha, hl, lam, qdc, qac,
-            mode, tabs)
+            mode, tabs, recon_y)
         recon_c = torch.clamp(pc + ic, 0, self.maxval)
 
         skip = (lv.abs().sum((-1, -2)) + lc[:, 0].abs().sum((-1, -2))
@@ -510,9 +572,8 @@ class WavefrontPass(torch.nn.Module):
         dist = dist + self._sse(recon_c[:, 1], src_v)
         rate = rate_y + rate_c[:, 0] + rate_c[:, 1] + 7.0
         cost = dist + lam * rate
-        zi = torch.zeros_like(mode)
-        out = dict(mode=mode, delta=delta, tt=tt_sym, skip=skip, au=zi,
-                   av=zi, uv=uv_mode)
+        out = dict(mode=mode, delta=delta, tt=tt_sym, skip=skip,
+                   au=alpha[:, 0], av=alpha[:, 1], uv=uv_mode)
         levels = (lv.to(torch.int16), lc[:, 0].to(torch.int16),
                   lc[:, 1].to(torch.int16))
         return self._race_inter((recon_y, recon_c[:, 0], recon_c[:, 1]), out,
@@ -870,9 +931,11 @@ class WavefrontPass(torch.nn.Module):
         part_bits64 = params[o + 4 : o + 6]
         o += 6
         bits_uv14 = params[o : o + 182].reshape(13, 14)
+        bits_sign = params[o + 182 : o + 190]
+        bits_alpha = params[o + 190 : o + 286].reshape(6, 16)
         o += 182 + 8 + 96
         bits_angle = params[o : o + 8]
-        tabs = (bits_uv14, None, None, bits_angle)
+        tabs = (bits_uv14, bits_sign, bits_alpha, bits_angle)
         if self.inter_on:
             # phase A: every inter block of every level, fully batched (MC
             # reads the reference, never the recon carry)

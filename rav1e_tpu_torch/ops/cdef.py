@@ -16,6 +16,11 @@ reads only pre-CDEF samples, so each 8x8 block's output does not depend
 on its neighbours' strengths and a per-superblock gather equals a
 per-superblock decode (cdef_jax.py:301-303).
 
+Outside the chain (the host deblock level search of speed <= 5):
+cdef_search_apply_device runs the same search on uploaded host-deblocked
+planes (cdef_jax.py:374), and cdef_frame_device applies the fixed
+strengths of the sampled host search (cdef_jax.py:168).
+
 The JAX search sums the SSE in f32; here the sums are exact integers, so
 a superblock whose two best candidates lie within f32 rounding of each
 other may pick the other one (see tests/test_torch_filters.py).
@@ -357,7 +362,8 @@ def search_apply(y, u, v, sy, su, sv, skip, sb_lam: float, damping: int,
     (h/2, w/2), sources alike, skip the per-mi map.  Returns (use_sb,
     frame_best, idx_map, y_out, u_out, v_out), all on y's device."""
     if bd != 8:
-        raise NotImplementedError("CDEF on the device is 8-bit only")
+        raise NotImplementedError("CDEF on the device is 8-bit only "
+                                  "(ROADMAP queue 1 item 10)")
     h, w = y.shape
     damping = damping + bd - 8  # spec: damping scales with bit depth
     dirs, var = cdef_dir(y, bd)
@@ -367,3 +373,75 @@ def search_apply(y, u, v, sy, su, sv, skip, sb_lam: float, damping: int,
     yo, uo, vo = cdef_filter(y, u, v, sy, su, sv, dirs, var, act, damping,
                              APPLY, idx_map)
     return use_sb, frame_best, idx_map, yo, uo, vo
+
+
+# -- outside the filter chain (the host deblock search's path) ------------------
+
+def _planes(rec, h: int, w: int, device):
+    """Copies of the coded-area (Y, U, V) planes of `rec` on the device,
+    int32 (copies also on the CPU: rec is written over afterwards)."""
+    up = lambda a: torch.tensor(np.ascontiguousarray(a, np.int32),
+                                device=device)
+    return [up(rec[0][:h, :w]), up(rec[1][: h >> 1, : w >> 1]),
+            up(rec[2][: h >> 1, : w >> 1])]
+
+
+def cdef_search_apply_device(rec, src, skip, damping: int, bd: int,
+                             coded_w: int, coded_h: int, sb_lam=None,
+                             device="cuda"):
+    """Search the strengths over the whole frame and apply the winner
+    (cdef_jax.py:374): the host-deblocked planes and the source go up, K5
+    and K6 search, decide and apply on the device, and the filtered planes
+    come back into rec (in place).  Returns (strengths, (dev_db_y,
+    dev_cdef_y), sb_info): the deblocked and filtered luma stay on the
+    device for the Wiener trial (lrf.wiener_filter_frame_device).  With
+    sb_lam None the frame-level pair is forced (cdef_bits = 0)."""
+    h, w = coded_h, coded_w
+    lam = np.float32(np.inf if sb_lam is None else sb_lam)
+    planes = _planes(rec, h, w, device)
+    srcs = _planes(src, h, w, device)
+    sk = torch.as_tensor(np.ascontiguousarray(skip), device=device)
+    use_sb, frame_best, idx_map, yo, uo, vo = search_apply(
+        *planes, *srcs, sk, float(lam), damping, bd)
+    for p, o in enumerate((yo, uo, vo)):
+        hh, ww = o.shape
+        rec[p][:hh, :ww] = o.cpu().numpy()
+    strengths, sb_info = _sb_result(bool(use_sb), int(frame_best),
+                                    idx_map.cpu().numpy().astype(np.int32))
+    return strengths, (planes[0], yo), sb_info
+
+
+def cdef_frame_device(rec, skip, y_pri: int, y_sec: int, uv_pri: int,
+                      uv_sec: int, damping: int, bd: int, coded_w: int,
+                      coded_h: int, device="cuda") -> None:
+    """CDEF with one strength pair for the frame, in place on rec
+    (cdef_jax.py:168): K5, then K6 in apply mode with every superblock on
+    the candidate pair of those strengths.  The host search
+    (intra_frame._cdef_search) picks luma and chroma strengths apart; when
+    no pair of the table joins them, a second apply gives the chroma."""
+    if (y_pri | y_sec | uv_pri | uv_sec) == 0:
+        return
+    if bd != 8:
+        raise NotImplementedError("CDEF on the device is 8-bit only "
+                                  "(ROADMAP queue 1 item 10)")
+    if (y_pri, y_sec) not in Y_CANDIDATES or \
+            (uv_pri, uv_sec) not in UV_CANDIDATES:
+        raise ValueError("cdef_frame_device: strengths outside the "
+                         "candidate table")
+    h, w = coded_h, coded_w
+    ky = Y_CANDIDATES.index((y_pri, y_sec))
+    kc = PAIR_UV_IDX.index(UV_CANDIDATES.index((uv_pri, uv_sec)))
+    y, u, v = _planes(rec, h, w, device)
+    sk = torch.as_tensor(np.ascontiguousarray(skip), device=device)
+    dirs, var = cdef_dir(y, bd)
+    act = active_blocks(sk, h, w)
+    nsb = (-(-h // 64), -(-w // 64))
+    apply = lambda k: cdef_filter(
+        y, u, v, y, u, v, dirs, var, act, damping + bd - 8, APPLY,
+        torch.full(nsb, k, dtype=torch.int32, device=y.device))
+    yo, uo, vo = apply(ky)
+    if PAIR_UV_IDX[ky] != PAIR_UV_IDX[kc]:
+        _y, uo, vo = apply(kc)
+    for p, o in enumerate((yo, uo, vo)):
+        hh, ww = o.shape
+        rec[p][:hh, :ww] = o.cpu().numpy()

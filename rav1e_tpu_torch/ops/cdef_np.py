@@ -1,9 +1,10 @@
 """CDEF (constrained directional enhancement filter), spec 7.15.
 
 Reference analog: src/cdef.rs (paper: arXiv 1602.05975, see PAPERS.md).
-NumPy oracle: the whole-frame batched filter of the JAX package's
-cdef_np (validated there against libdav1d), copied for the port's tests
-and for chip_smoke.py's re-derivation of the filtered frame.
+NumPy oracle implementation, a copy of the JAX package's (bit-exactness
+asserted there against libdav1d by tests/test_cdef_conformance.py): the
+sampled host strength search (intra_frame._cdef_search) and the device
+kernels (ops/cdef.py) build on it.
 
 Key normative pieces:
 - 8x8 direction estimation from luma partial sums (Div_Table costs)
@@ -37,6 +38,107 @@ CDEF_DIRECTIONS = np.array(
 
 PRI_TAPS = ((4, 2), (3, 3))  # indexed by pri_strength & 1
 SEC_TAPS = (2, 1)
+
+
+def find_dir_block(block: np.ndarray, bd: int) -> tuple:
+    """Direction + variance of one 8x8 luma block (spec 7.15.2)."""
+    x = (block.astype(np.int64) >> (bd - 8)) - 128
+    i = np.arange(8)[:, None] * np.ones(8, np.int64)[None, :]
+    j = np.ones(8, np.int64)[:, None] * np.arange(8)[None, :]
+    i = i.astype(np.int64)
+    j = j.astype(np.int64)
+    bins = [
+        i + j,
+        i + (j >> 1),
+        i,
+        3 + i - (j >> 1),
+        7 + i - j,
+        3 - (i >> 1) + j,
+        j,
+        (i >> 1) + j,
+    ]
+    cost = np.zeros(8, np.int64)
+    for d in range(8):
+        nb = int(bins[d].max()) + 1
+        partial = np.bincount(bins[d].ravel(), weights=x.ravel(), minlength=nb).astype(np.int64)
+        if d in (0, 4):
+            k = np.arange(15)
+            div = DIV_TABLE[np.minimum(k + 1, 15 - k).clip(max=8)]
+            cost[d] = int((partial[:15] ** 2 * div).sum())
+        elif d in (2, 6):
+            cost[d] = int((partial[:8] ** 2).sum()) * 105
+        else:
+            # 11 bins: lengths 2,4,6,8,8,8,8,8,6,4,2
+            lens = np.array([2, 4, 6, 8, 8, 8, 8, 8, 6, 4, 2], np.int64)
+            cost[d] = int((partial[:11] ** 2 * DIV_TABLE[lens]).sum())
+    best = int(np.argmax(cost))
+    var = int(cost[best] - cost[(best + 4) & 7]) >> 10
+    return best, var
+
+
+def constrain(diff: np.ndarray, strength: int, damping: int) -> np.ndarray:
+    if strength == 0:
+        return np.zeros_like(diff)
+    shift = max(0, damping - int(strength).bit_length() + 1)
+    a = np.abs(diff)
+    v = np.minimum(a, np.maximum(0, strength - (a >> shift)))
+    return np.sign(diff) * v
+
+
+def adjust_strength(strength: int, var: int) -> int:
+    if not var:
+        return 0
+    i = min(int(var >> 6).bit_length() - 1, 12) if (var >> 6) else 0
+    return (strength * (4 + i) + 8) >> 4
+
+
+def cdef_filter_block(
+    padded: np.ndarray,
+    y0: int,
+    x0: int,
+    h: int,
+    w: int,
+    pri: int,
+    sec: int,
+    damping: int,
+    direction: int,
+    bd: int,
+    pad: int,
+) -> np.ndarray:
+    """Filter one block.  padded: plane padded by `pad` px of context
+    (CDEF_VERY_LARGE beyond the frame); (y0, x0) in unpadded coords."""
+    ys = y0 + pad
+    xs = x0 + pad
+    x = padded[ys : ys + h, xs : xs + w].astype(np.int64)
+    summ = np.zeros((h, w), np.int64)
+    mx = x.copy()
+    mn = x.copy()
+    pri_taps = PRI_TAPS[(pri >> (bd - 8)) & 1]
+
+    def tap(dy, dx):
+        return padded[ys + dy : ys + dy + h, xs + dx : xs + dx + w].astype(np.int64)
+
+    if pri:
+        for k in range(2):
+            dy, dx = CDEF_DIRECTIONS[direction][k]
+            for s in (1, -1):
+                p = tap(s * dy, s * dx)
+                summ += pri_taps[k] * constrain(p - x, pri, damping)
+                valid = p != CDEF_VERY_LARGE
+                mx = np.where(valid, np.maximum(mx, p), mx)
+                mn = np.where(valid, np.minimum(mn, p), mn)
+    if sec:
+        for dir2 in ((direction + 2) & 7, (direction + 6) & 7):
+            for k in range(2):
+                dy, dx = CDEF_DIRECTIONS[dir2][k]
+                for s in (1, -1):
+                    p = tap(s * dy, s * dx)
+                    summ += SEC_TAPS[k] * constrain(p - x, sec, damping)
+                    valid = p != CDEF_VERY_LARGE
+                    mx = np.where(valid, np.maximum(mx, p), mx)
+                    mn = np.where(valid, np.minimum(mn, p), mn)
+    out = x + ((8 + summ - (summ < 0)) >> 4)
+    return np.clip(out, mn, mx)
 
 
 _BIN_MATS = None
@@ -204,3 +306,74 @@ def cdef_frame_batched(
                                 uv_sec << scale,
                                 damping - 1, bd, coded_w >> 1, coded_h >> 1,
                                 active, 1)
+
+
+def cdef_frame(
+    rec: list,
+    skip: np.ndarray,
+    y_pri: int,
+    y_sec: int,
+    uv_pri: int,
+    uv_sec: int,
+    damping: int,
+    bd: int,
+    coded_w: int,
+    coded_h: int,
+) -> None:
+    """Apply CDEF in place over the coded area (single strength pair,
+    cdef_bits=0).  skip: per-mi skip map.  Reads come from a pre-filter
+    copy (the spec's CdefFrame input)."""
+    if (y_pri | y_sec | uv_pri | uv_sec) == 0:
+        return
+    damping += bd - 8  # spec 7.15.3: damping scales with bit depth
+    pad = 3
+    srcs = []
+    for p, plane in enumerate(rec):
+        sub = 0 if p == 0 else 1
+        w = coded_w >> sub
+        h = coded_h >> sub
+        s = np.full((h + 2 * pad, w + 2 * pad), CDEF_VERY_LARGE, np.int32)
+        s[pad : pad + h, pad : pad + w] = plane[:h, :w]
+        srcs.append(s)
+
+    scale = bd - 8
+    y_pri <<= scale
+    y_sec <<= scale
+    uv_pri <<= scale
+    uv_sec <<= scale
+
+    for by in range(0, coded_h, 8):
+        for bx in range(0, coded_w, 8):
+            r, c = by // 4, bx // 4
+            s4 = skip[r : r + 2, c : c + 2]
+            if s4.all():
+                continue
+            # spec 7.15.3: the direction is only derived when a primary
+            # strength is nonzero; secondary-only filtering uses dir 0
+            if y_pri or uv_pri:
+                direction, var = find_dir_block(
+                    srcs[0][pad + by : pad + by + 8, pad + bx : pad + bx + 8], bd
+                )
+            else:
+                direction, var = 0, 0
+            if y_pri or y_sec:
+                pri_adj = adjust_strength(y_pri, var) if y_pri else 0
+                if pri_adj or y_sec:
+                    out = cdef_filter_block(
+                        srcs[0], by, bx, 8, 8, pri_adj, y_sec, damping,
+                        direction if y_pri else 0, bd, pad,
+                    )
+                    rec[0][by : by + 8, bx : bx + 8] = out
+            if uv_pri or uv_sec:
+                cy, cx_ = by >> 1, bx >> 1
+                uv_dir = direction if uv_pri else 0
+                out = cdef_filter_block(
+                    srcs[1], cy, cx_, 4, 4, uv_pri, uv_sec, damping - 1,
+                    uv_dir, bd, pad,
+                )
+                rec[1][cy : cy + 4, cx_ : cx_ + 4] = out
+                out = cdef_filter_block(
+                    srcs[2], cy, cx_, 4, 4, uv_pri, uv_sec, damping - 1,
+                    uv_dir, bd, pad,
+                )
+                rec[2][cy : cy + 4, cx_ : cx_ + 4] = out

@@ -19,8 +19,11 @@ sync:
    with its none-vs-Wiener choice per unit (K8).
 
 collect_filter_chain copies the planes back into fe.rec and fills the
-CDEF strengths and the fused LR decision for the host entropy pass.  LR
-with the SGR search (speed <= 5) is outside this chain and raises.
+CDEF strengths and the fused LR decision for the host entropy pass.  With
+the SGR search (speed <= 5, where the chain runs only when the deblock
+levels are all zero) the chain skips the fused LR and hands back the
+deblocked planes, on the host for the per-unit search and on the device
+for its trial filter (filter_chain_jax.py:327, :360).
 """
 
 from __future__ import annotations
@@ -32,13 +35,6 @@ from rav1e_tpu_torch.ops import cdef
 from rav1e_tpu_torch.ops import deblock as db
 from rav1e_tpu_torch.ops import lrf
 from rav1e_tpu_torch.ops.deblock_np import thresholds
-
-
-def _check_envelope(fe) -> None:
-    if fe.lrf and getattr(fe, "sgr_search", False):
-        raise NotImplementedError(
-            "loop restoration with the SGR search (speed <= 5) in the "
-            "device filter chain: ROADMAP queue 1 item 10")
 
 
 def _splice(fe, dev_rec, device):
@@ -101,7 +97,6 @@ def launch_filter_chain(fe):
     frame is outside the device chain's envelope (8-bit 4:2:0)."""
     if fe.bd != 8 or not fe._is420:
         return None
-    _check_envelope(fe)
     device = fe.device
     h, w = fe.coded_h, fe.coded_w
     ch, cw = h >> 1, w >> 1
@@ -123,8 +118,10 @@ def launch_filter_chain(fe):
                                     lims[slot_v], lims[slot_h],
                                     fe.bd).contiguous())
     lr_fuse = _lr_fuse(fe)
+    # the host LR search (SGR, per-unit taps) reads the deblocked planes
+    keep_db = dbs if fe.lrf and getattr(fe, "sgr_search", False) else None
     if not fe.cdef_damping and lr_fuse is None:
-        return {"planes": dbs, "cdef": None, "lr": None}
+        return {"planes": dbs, "cdef": None, "lr": None, "db": keep_db}
     srcs = [torch.as_tensor(np.ascontiguousarray(fe.src[p][:hh, :ww],
                                                  np.int32), device=device)
             for p, (hh, ww) in enumerate(((h, w), (ch, cw), (ch, cw)))]
@@ -137,14 +134,16 @@ def launch_filter_chain(fe):
             *dbs, *srcs, skip, float(sb_lam), fe.cdef_damping, fe.bd)
         sel = (use_sb, frame_best, idx_map)
     lr = _restore(out, dbs, srcs, fe, *lr_fuse) if lr_fuse else None
-    return {"planes": out, "cdef": sel, "lr": lr}
+    return {"planes": out, "cdef": sel, "lr": lr, "db": keep_db}
 
 
 def collect_filter_chain(fe, handle) -> bool:
     """Wait on a launch_filter_chain handle: copy the filtered planes back
     into fe.rec and fill the CDEF strengths (fe.cdef_strengths,
     fe.cdef_sb) and the fused LR decision (fe._chain_lr = (composed
-    planes, choices, taps, en))."""
+    planes, choices, taps, en)), or for the host LR search the deblocked
+    planes (fe._deblock_copy on the host; fe._dev_db, fe._dev_cdef and
+    their chroma pairs fe._dev_db_c, fe._dev_cdef_c on the device)."""
     h, w = fe.coded_h, fe.coded_w
     ch, cw = h >> 1, w >> 1
     with fe.stats.stage("chain_wait"):
@@ -168,4 +167,15 @@ def collect_filter_chain(fe, handle) -> bool:
         fe.cdef_strengths = None
         fe.cdef_sb = None
     fe._chain_lr = (comp, choice, taps, en) if lr is not None else None
+    db = handle["db"]
+    if db is not None:
+        copies = []
+        for p, d in enumerate(db):
+            full = np.array(fe.rec[p])
+            full[: d.shape[0], : d.shape[1]] = d.cpu().numpy()
+            copies.append(full)
+        fe._deblock_copy = copies
+        planes = handle["planes"]
+        fe._dev_db, fe._dev_cdef = db[0], planes[0]
+        fe._dev_db_c, fe._dev_cdef_c = tuple(db[1:]), tuple(planes[1:])
     return True

@@ -1,7 +1,9 @@
-"""Intra prediction in PyTorch (K1), bit-exact with ops/intra_np.py.
+"""Intra prediction in PyTorch (K1) and chroma-from-luma (K11), bit-exact
+with ops/intra_np.py.
 
 Counterpart of rav1e_tpu/ops/intra_jax.py (predict_dirs, dir_matrices,
-dc_predict) and of the wavefront's _nondir_preds.  NORMATIVE (spec 7.11.2):
+dc_predict; cfl_ac_420_batch and cfl_predict_batch with the wavefront's
+alpha fit, K11) and of the wavefront's _nondir_preds.  NORMATIVE (spec 7.11.2):
 the wavefront encoder reconstructs with these predictions.  Edge filtering
 and upsampling are off in this encoder's streams.
 
@@ -200,3 +202,60 @@ def intra_pred(above: torch.Tensor, left: torch.Tensor, ha: torch.Tensor,
                      dr.data_ptr(), smw[n].data_ptr(), out.data_ptr(),
                      kernels.stream_ptr(a)), "intra_pred")
     return out
+
+
+# -- K11 cfl ----------------------------------------------------------------------
+
+def cfl_plain(luma: torch.Tensor, dc: torch.Tensor, src: torch.Tensor,
+              bd: int = 8):
+    """Plain version of K11.  luma: (B, n, n) reconstructed luma blocks;
+    dc, src: (B, 2, n/2, n/2) the DC predictions and sources of U and V.
+    Returns (alpha (B, 2), pred (B, 2, n/2, n/2), resid = src - pred), all
+    int32: the AC values of the 2x2 luma sums (cfl_ac_420_batch), each
+    plane's alpha fitted to src - dc (exact int64 sums, each rounded to
+    float32 once, the quotient rounded half to even, clipped to +-16, 0
+    for flat luma) and the CFL prediction (cfl_predict_batch)."""
+    y = luma.to(torch.int64)
+    L = (y[:, 0::2, 0::2] + y[:, 0::2, 1::2] + y[:, 1::2, 0::2]
+         + y[:, 1::2, 1::2]) << 1
+    m = L.shape[1] * L.shape[2]
+    log2sz = m.bit_length() - 1
+    avg = (L.sum((-1, -2)) + (1 << (log2sz - 1))) >> log2sz
+    ac = (L - avg[:, None, None])[:, None]  # (B, 1, n2, n2)
+    res = src.to(torch.int64) - dc.to(torch.int64)
+    den = (ac * ac).sum((-1, -2)).to(torch.float32)  # (B, 1)
+    num = (res * ac).sum((-1, -2)).to(torch.float32)  # (B, 2)
+    q = torch.round(num * 64.0 / torch.clamp(den, min=1.0))
+    alpha = torch.where(den > 0, torch.clamp(q, -16, 16),
+                        torch.zeros_like(q)).to(torch.int64)
+    prod = alpha[:, :, None, None] * ac
+    scaled = torch.sign(prod) * ((prod.abs() + 32) >> 6)
+    pred = torch.clamp(dc.to(torch.int64) + scaled, 0, (1 << bd) - 1)
+    return (alpha.to(torch.int32), pred.to(torch.int32),
+            (src.to(torch.int64) - pred).to(torch.int32))
+
+
+def cfl(luma: torch.Tensor, dc: torch.Tensor, src: torch.Tensor,
+        bd: int = 8):
+    """CFL fit and prediction of B blocks of n x n luma (n in 16, 32) and
+    their U and V (K11); see cfl_plain."""
+    if luma.device.type == "cpu":
+        return cfl_plain(luma, dc, src, bd)
+    B, n, _ = luma.shape
+    n2 = n >> 1
+    if n not in (8, 16, 32) or luma.shape != (B, n, n) or \
+            dc.shape != (B, 2, n2, n2) or src.shape != dc.shape:
+        raise ValueError("cfl: luma (B, n, n) with n in 8, 16, 32 and dc, "
+                         "src (B, 2, n/2, n/2)")
+    y = luma.to(torch.int32).contiguous()
+    d = dc.to(torch.int32).contiguous()
+    s = src.to(torch.int32).contiguous()
+    alpha = torch.empty((B, 2), dtype=torch.int32, device=y.device)
+    pred = torch.empty_like(d)
+    resid = torch.empty_like(d)
+    fn = kernels.lib("cfl").cfl
+    kernels.COUNTS["cfl"] += 1
+    kernels.check(fn(y.data_ptr(), B, n, d.data_ptr(), s.data_ptr(), bd,
+                     alpha.data_ptr(), pred.data_ptr(), resid.data_ptr(),
+                     kernels.stream_ptr(y)), "cfl")
+    return alpha, pred, resid

@@ -1,4 +1,4 @@
-"""Fused Wiener loop restoration on the GPU (K7 wiener_solve, K8 wiener_lr).
+"""Wiener loop restoration on the GPU (K7 wiener_solve, K8 wiener_lr).
 
 Counterpart of the fused LR stage of rav1e_tpu/ops/filter_chain_jax.py
 (:230-291): _wiener_solve_dev (K7) fits one symmetric 7-tap Wiener filter
@@ -12,6 +12,11 @@ K7's normal equations are exact int64 sums and its 3x3 solve is float64
 with every operation rounded on its own, so the kernel and the plain
 version below give the same taps.  The JAX version sums and solves in
 f32: a tap may round the other way where coef * 128 lies near a .5 tie.
+
+K8 also has a frame mode (wiener_filter_frame): the whole restored plane
+with given taps, no unit choice.  wiener_filter_frame_device runs it for
+the host LR search of speed <= 5 (lrf_jax.py:254), whose tap solve stays
+on the host.
 
 On a CUDA tensor the wrappers launch the kernels in csrc/; on a CPU
 tensor they run the plain versions below.
@@ -252,3 +257,46 @@ def wiener_lr(cd, db, src, taps, en, lam: float, rate: float, unit: int,
                      float(np.float32(rate)), out.data_ptr(),
                      choice.data_ptr(), kernels.stream_ptr(cd)), "wiener_lr")
     return out, choice.to(torch.bool)
+
+
+def wiener_filter_frame(cd, db, taps, stripe: int, hh: int, ww: int):
+    """The whole Wiener-restored (hh, ww) int32 plane with taps (2, 3)
+    int32 (vertical, horizontal) and the given stripe size: K8 in frame
+    mode, no unit sums or choice (plain version: wiener_filter_plain)."""
+    if cd.device.type == "cpu":
+        return wiener_filter_plain(cd, db, taps[0], taps[1], stripe, hh, ww)
+    if stripe not in (32, 64) or taps.shape != (2, 3) or any(
+            t.shape[0] < hh or t.shape[1] < ww for t in (cd, db)):
+        raise ValueError("wiener_filter_frame: stripe 32 or 64, taps "
+                         "(2, 3), planes of at least hh x ww")
+    cd, db = _rows(cd), _rows(db)
+    taps = taps.to(torch.int32).contiguous()
+    out = torch.empty((hh, ww), dtype=torch.int32, device=cd.device)
+    fn = kernels.lib("wiener_lr").wiener_lr
+    kernels.COUNTS["wiener_lr_frame"] += 1
+    kernels.check(fn(cd.data_ptr(), cd.stride(0), db.data_ptr(), db.stride(0),
+                     None, 0, hh, ww, stripe, taps.data_ptr(), None, 0.0,
+                     0.0, out.data_ptr(), None, kernels.stream_ptr(cd)),
+                  "wiener_lr (frame mode)")
+    return out
+
+
+def wiener_filter_frame_device(cdef_p, deblock_p, vtaps3, htaps3,
+                               stripe_size: int, bd: int, frame_w: int,
+                               frame_h: int, dev_cdef=None, dev_db=None,
+                               device="cuda") -> np.ndarray:
+    """lrf_np.wiener_filter_frame on the device (lrf_jax.py:254): the
+    (frame_h, frame_w) int64 restored plane.  dev_cdef/dev_db: planes
+    already on the device (the CDEF pass's luma), used instead of
+    uploading cdef_p/deblock_p."""
+    if bd != 8:
+        raise NotImplementedError("the device Wiener filter is 8-bit only "
+                                  "(ROADMAP queue 1 item 10)")
+    up = lambda a: torch.as_tensor(
+        np.ascontiguousarray(a[:frame_h, :frame_w], np.int32), device=device)
+    cd = dev_cdef if dev_cdef is not None else up(cdef_p)
+    db = dev_db if dev_db is not None else up(deblock_p)
+    taps = torch.as_tensor(np.asarray([vtaps3, htaps3], np.int32),
+                           device=cd.device)
+    out = wiener_filter_frame(cd, db, taps, stripe_size, frame_h, frame_w)
+    return out.cpu().numpy().astype(np.int64)

@@ -1,8 +1,13 @@
-"""Synthetic test content: the clip bench.py encodes.
+"""Synthetic test content: the clip bench.py encodes, and a clip whose
+chroma follows its luma.
 
-A diagonal luma ramp with +-8 noise from a fixed seed, and chroma ramps,
-each moving a little from frame to frame.  Deterministic, so two encoders
-(or two runs) fed `make_planes` see the same pixels.
+make_planes: a diagonal luma ramp with +-8 noise from a fixed seed, and
+chroma ramps, each moving a little from frame to frame.  Its chroma does
+not follow its luma, so chroma-from-luma prediction (CFL) seldom wins.
+make_planes_cfl: smooth luma waves drifting 3 px a frame with +-2 noise,
+and U and V linear in the 2x2-averaged luma, the content CFL is for.
+Deterministic, so two encoders (or two runs) fed them see the same
+pixels.
 """
 
 from __future__ import annotations
@@ -30,3 +35,26 @@ def make_planes(w: int, h: int, n: int, seed: int = 0) -> list:
 def make_frames(w: int, h: int, n: int, seed: int = 0) -> list:
     """n Frames of make_planes content."""
     return [Frame.from_planes(*p) for p in make_planes(w, h, n, seed)]
+
+
+def make_planes_cfl(w: int, h: int, n: int, seed: int = 1) -> list:
+    """n frames of (y, u, v) uint8 4:2:0 planes whose chroma is a linear
+    function of the luma (w, h even)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    out = []
+    for t in range(n):
+        y = (128 + 60 * np.sin((xx + 3 * t) / 9.0) * np.cos(yy / 13.0)
+             + 30 * np.sin((xx + yy) / 23.0))
+        y = np.clip(y + rng.integers(-2, 3, y.shape), 0, 255)
+        yd = y.reshape(h // 2, 2, w // 2, 2).mean((1, 3))
+        u = np.clip(64 + 0.5 * yd, 0, 255)
+        v = np.clip(200 - 0.4 * yd, 0, 255)
+        out.append((y.astype(np.uint8), u.astype(np.uint8),
+                    v.astype(np.uint8)))
+    return out
+
+
+def make_frames_cfl(w: int, h: int, n: int, seed: int = 1) -> list:
+    """n Frames of make_planes_cfl content."""
+    return [Frame.from_planes(*p) for p in make_planes_cfl(w, h, n, seed)]

@@ -6,11 +6,14 @@ superblock names its mode, angle delta, tx type and levels (and on inter
 frames its motion vector), so prediction from the final pre-filter recon
 (for an inter block, mode 13: mc_np from the reference frame's
 post-filter recon), dequantisation and the normative inverse transform
-must land exactly on the recon the device carried.  The
-filtered frame is then held against the numpy oracles on the same
-pre-filter planes: deblock_np, then cdef_np with each superblock's coded
-strength pair, then lrf_np's Wiener filter with the coded taps on the
-units that chose it.
+must land exactly on the recon the device carried (a chroma block coded
+with CFL: the DC prediction, then intra_np's CFL with the coded alpha and
+the AC of the block's final luma).  The filtered frame is then held
+against the numpy oracles on the same pre-filter planes: deblock_np, then
+cdef_np with each superblock's coded strength pair, then loop
+restoration with each unit's coded parameters: lrf_np's Wiener filter
+with the frame's or the unit's taps, sgr_np's self-guided filter with the
+unit's set and projection.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from rav1e_tpu_torch.ops import lrf_np as lnp
 from rav1e_tpu_torch.ops import intra_np as ip
 from rav1e_tpu_torch.ops import mc_np as mcn
 from rav1e_tpu_torch.ops import quantize_np as qz
+from rav1e_tpu_torch.ops import sgr_np as sgn
 from rav1e_tpu_torch.ops import transforms_np as tn
 
 # DTT4_IDTX set symbol -> tx type (wavefront LUMA_TT)
@@ -30,7 +34,8 @@ _TT = {1: tn.DCT_DCT, 2: tn.ADST_ADST, 3: tn.ADST_DCT, 4: tn.DCT_ADST,
        0: tn.IDTX}
 # uv mode -> derived chroma tx type (spec Mode_To_Txfm_Type)
 _UV_TX = {0: tn.DCT_DCT, 1: tn.ADST_DCT, 2: tn.DCT_ADST, 9: tn.ADST_ADST,
-          10: tn.ADST_DCT, 11: tn.DCT_ADST, 12: tn.ADST_ADST}
+          10: tn.ADST_DCT, 11: tn.DCT_ADST, 12: tn.ADST_ADST, 13: tn.DCT_DCT}
+UV_CFL = 13
 _QOFF = ((0, 0), (0, 32), (32, 0), (32, 32))
 _SOFF = ((0, 0), (0, 16), (16, 0), (16, 16))
 
@@ -50,7 +55,9 @@ def _block_avail(geom, r, c):
 
 
 def _recon(plane, x, y, n, mode, ha, hl, delta, ntr, nbl, levels, tx, dcq,
-           acq, ref=None, mv=None, sub=0):
+           acq, ref=None, mv=None, sub=0, cfl=None):
+    """One block's recon; cfl: (luma AC, alpha) of a CFL chroma block,
+    whose mode is then DC."""
     if mode == 13:  # inter, LAST, REGULAR filter
         pred = mcn.put_single(ref, x, y, n, n, int(mv[0]), int(mv[1]), sub,
                               sub, 8)
@@ -60,6 +67,8 @@ def _recon(plane, x, y, n, mode, ha, hl, delta, ntr, nbl, levels, tx, dcq,
                                      n_bottom_left=int(nbl))
         pred = ip.predict(mode, above, left, n, n, bool(ha), bool(hl),
                           angle_delta=delta)
+        if cfl is not None:
+            pred = ip.cfl_predict(pred, cfl[0], int(cfl[1]), 8)
     lv = np.zeros((n, n), np.int32)
     m = levels.shape[0]
     lv[:m, :m] = levels
@@ -74,7 +83,7 @@ def rederive_sb(wf, rec, r: int, c: int, dc_q: int, ac_q: int,
     post-filter recon [Y, U, V] at the real frame size (inter frames)."""
     av = _block_avail(wf.geom, r, c)
     for rec_ in wf.sb_records(r, c):
-        (x, y, bw, _bh, mode, _skip, tt, ha, hl, _au, _av, delta, uv, lvy,
+        (x, y, bw, _bh, mode, _skip, tt, ha, hl, au, av_, delta, uv, lvy,
          lvu, lvv) = rec_[:16]
         mv = rec_[16:18] if mode == 13 else None
         ref = (lambda p: refs[p]) if mode == 13 else (lambda p: None)
@@ -85,11 +94,13 @@ def rederive_sb(wf, rec, r: int, c: int, dc_q: int, ac_q: int,
         if not np.array_equal(ly, rec[0][y : y + bw, x : x + bw]):
             return False
         cn = bw >> 1
-        cmode = 13 if mode == 13 else uv
-        for p, lvc in ((1, lvu), (2, lvv)):
+        cfl = mode != 13 and uv == UV_CFL
+        cmode = 13 if mode == 13 else (0 if cfl else uv)
+        ac = ip.cfl_ac_420(rec[0][y : y + bw, x : x + bw]) if cfl else None
+        for p, lvc, alpha in ((1, lvu, au), (2, lvv, av_)):
             lc = _recon(rec[p], x >> 1, y >> 1, cn, cmode, ha, hl, 0, 0, 0,
                         np.asarray(lvc), _UV_TX[uv], dc_q, ac_q, ref(p), mv,
-                        1)
+                        1, (ac, alpha) if cfl else None)
             if not np.array_equal(lc, rec[p][y >> 1 : (y >> 1) + cn,
                                              x >> 1 : (x >> 1) + cn]):
                 return False
@@ -108,9 +119,8 @@ def filters_match(fe, prefilter, recon) -> bool:
     superblock, cdef_np.cdef_frame_batched with the superblock's coded
     strength pair (over the whole frame when one pair serves it, else over
     each superblock with a margin: CDEF reads only deblocked samples, so
-    per-superblock filtering equals per-superblock decoding); then
-    lrf_np.wiener_filter_frame with the coded taps, composed on the units
-    that chose Wiener."""
+    per-superblock filtering equals per-superblock decoding); then loop
+    restoration of each unit with its coded parameters (_restore)."""
     h, w = fe.coded_h, fe.coded_w
     rec = [p.copy() for p in prefilter]
     dnp.deblock_frame(rec, fe.db_info, fe.lf_levels, fe.lf_sharpness, fe.bd,
@@ -150,29 +160,55 @@ def filters_match(fe, prefilter, recon) -> bool:
                     rec[p][r * b : (r + 1) * b, c * b : (c + 1) * b] = \
                         crop[p][oy : oy + b, ox : ox + b]
     if fe.lrf:
-        oh, ow = fe.out_h, fe.out_w
-        ch, cw = (oh + 1) >> 1, (ow + 1) >> 1
-        units = {0: {k: v is not None for k, v in fe._lr_params.items()}}
-        taps = {}
-        for k, v in fe._lr_params.items():
-            if v is not None:
-                taps[0] = (v[1], v[2])
-        for p in (1, 2):
-            if fe.lr_types[p] == 2:
-                units[p] = {k: v is not None
-                            for k, v in fe._lr_chroma[p].items()}
-                taps[p] = fe._lr_chroma_taps[p]
-        for p, (hh, ww, unit) in enumerate(((oh, ow, 64), (ch, cw, 32),
-                                            (ch, cw, 32))):
-            if p not in taps:
-                continue
-            rest = lnp.wiener_filter_frame(rec[p], db[p], *taps[p], unit,
-                                           fe.bd, ww, hh)
-            rows = lnp.unit_ranges(unit, hh, shifted=True)
-            cols = lnp.unit_ranges(unit, ww)
-            for (ur, uc), on in units[p].items():
-                if on:
-                    sl = (slice(*rows[ur]), slice(*cols[uc]))
-                    rec[p][sl] = rest[sl]
+        _restore(fe, rec, db)
     return all(np.array_equal(rec[i][: o.shape[0], : o.shape[1]],
                               np.asarray(o)) for i, o in enumerate(recon))
+
+
+def _restore(fe, rec, db) -> None:
+    """Loop restoration of the CDEF output `rec` (in place) from the
+    coded unit parameters: luma units Wiener with the frame's or their own
+    taps (lrf_np) or SGR with their set and projection (sgr_np); chroma
+    units Wiener with their plane's taps.  Every unit reads the CDEF
+    output and the deblocked planes `db`, never a restored neighbour."""
+    oh, ow = fe.out_h, fe.out_w
+    ch, cw = (oh + 1) >> 1, (ow + 1) >> 1
+    cd = [p.copy() for p in rec]
+    rows = lnp.unit_ranges(64, oh, shifted=True)
+    cols = lnp.unit_ranges(64, ow)
+    taps_of = lambda v: (tuple(v[1]), tuple(v[2]))
+    wiener = [taps_of(v) for v in fe._lr_params.values()
+              if v is not None and v[0] == "wiener"]
+    # tap sets that serve several units (the frame's): the plane once
+    full = {t: lnp.wiener_filter_frame(cd[0], db[0], *t, 64, fe.bd, ow, oh)
+            for t in set(wiener) if wiener.count(t) > 1}
+    flt = {}
+    for (ur, uc), v in fe._lr_params.items():
+        if v is None:
+            continue
+        (y0, y1), (x0, x1) = rows[ur], cols[uc]
+        if v[0] == "wiener":
+            t = taps_of(v)
+            rec[0][y0:y1, x0:x1] = (
+                full[t][y0:y1, x0:x1] if t in full else
+                lnp.wiener_filter_unit(cd[0], db[0], x0, y0, x1, y1, *t, 64,
+                                       fe.bd, ow, oh))
+        else:
+            _k, si, xqd, _out = v
+            if si not in flt:
+                flt[si] = sgn.sgr_flt_frame(cd[0], db[0], si, fe.bd, ow, oh)
+            f0, f1 = (None if f is None else f[y0:y1, x0:x1]
+                      for f in flt[si])
+            rec[0][y0:y1, x0:x1] = sgn.sgr_apply(
+                cd[0][y0:y1, x0:x1].astype(np.int64), f0, f1, xqd, si, fe.bd)
+    rows_c = lnp.unit_ranges(32, ch, shifted=True)
+    cols_c = lnp.unit_ranges(32, cw)
+    for p in (1, 2):
+        if fe.lr_types[p] != 2:
+            continue
+        rest = lnp.wiener_filter_frame(cd[p], db[p], *fe._lr_chroma_taps[p],
+                                       32, fe.bd, cw, ch)
+        for (ur, uc), out in fe._lr_chroma[p].items():
+            if out is not None:
+                sl = (slice(*rows_c[ur]), slice(*cols_c[uc]))
+                rec[p][sl] = rest[sl]

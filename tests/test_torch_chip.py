@@ -3,9 +3,9 @@
 These tests need an NVIDIA GPU and nvcc: each builds its kernel from
 rav1e_tpu_torch/csrc, launches it on CUDA tensors and holds the result
 against the plain version on the same inputs (identical for intra_pred,
-inv_txfm, deblock, cdef_dir, cdef_filter, wiener_solve, wiener_lr,
-mc_pred and me_fullpel; fwd_txq, with and without the inter race's
-thinning, within its rounding-tie share).  Without a
+inv_txfm, deblock, cdef_dir, cdef_filter, wiener_solve, wiener_lr, also
+in frame mode, mc_pred, me_fullpel and cfl; fwd_txq, with and without the
+inter race's thinning, within its rounding-tie share).  Without a
 card they skip.  On a machine without JAX (the tests' conftest imports
 it) run them as
 
@@ -390,8 +390,81 @@ def test_mixed_gop_on_card_conforms(monkeypatch):
     kernels.reset_counts()
     data, recon, fes = chip_smoke.encode(make_frames(320, 240, 3), check=True,
                                          mixed=True)
-    assert all(v > 0 for v in kernels.COUNTS.values()), kernels.COUNTS
+    # every counter but the speed-5 path's own (cfl, K8's frame mode)
+    assert all(v > 0 for k, v in kernels.COUNTS.items()
+               if k not in ("cfl", "wiener_lr_frame")), kernels.COUNTS
     assert [fe._chk_wf.has_mv for fe in fes] == [False, True, True]
     summary = chip_smoke.check_output(data, recon, fes, 2)
     assert summary["sbs_rederived_with_inter_blocks"] > 0
     assert summary["filter_chain_np_frames"] == 2
+
+
+@pytest.mark.parametrize("n", [16, 32])
+def test_cfl_kernel(n):
+    from rav1e_tpu_torch import kernels
+    from rav1e_tpu_torch.ops import intra
+
+    dev = _card()
+    rng = np.random.default_rng(SEED + n)
+    B, n2 = 600, n // 2
+    luma = rng.integers(0, 256, (B, n, n))
+    luma[:50] = luma[:50, :1, :1]  # flat: alpha 0
+    dc = rng.integers(0, 256, (B, 2, 1, 1)).repeat(n2, 2).repeat(n2, 3)
+    src = np.clip(dc + rng.integers(-60, 61, (B, 2, n2, n2)), 0, 255)
+    t = lambda a: torch.as_tensor(a.astype(np.int32), device=dev)
+    before = kernels.COUNTS["cfl"]
+    got = intra.cfl(t(luma), t(dc), t(src))
+    assert kernels.COUNTS["cfl"] == before + 1
+    ref = intra.cfl_plain(t(luma), t(dc), t(src))
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    assert (got[0][:50] == 0).all() and got[0].abs().max() > 0
+
+
+@pytest.mark.parametrize("stripe", [64, 32])
+def test_wiener_lr_frame_kernel(stripe):
+    """K8 in frame mode: the whole restored plane with the given taps and
+    stripe size, identical to wiener_filter_plain."""
+    from rav1e_tpu_torch import kernels
+    from rav1e_tpu_torch.ops import lrf
+
+    dev = _card()
+    rng = np.random.default_rng(SEED + stripe)
+    hh, ww = (1080, 1920) if stripe == 64 else (540, 960)
+    cd = torch.as_tensor(rng.integers(0, 256, (hh + 8, ww + 8)), device=dev,
+                         dtype=torch.int32)
+    db = torch.clamp(cd + torch.as_tensor(rng.integers(-9, 10, cd.shape),
+                                          device=dev, dtype=torch.int32),
+                     0, 255)
+    taps = torch.tensor([[0 if stripe == 32 else 3, -7, 15], [0, 4, -3]],
+                        dtype=torch.int32, device=dev)
+    before = kernels.COUNTS["wiener_lr_frame"]
+    got = lrf.wiener_filter_frame(cd, db, taps, stripe, hh, ww)
+    assert kernels.COUNTS["wiener_lr_frame"] == before + 1
+    ref = lrf.wiener_filter_plain(cd, db, taps[0], taps[1], stripe, hh, ww)
+    assert torch.equal(got, ref)
+
+
+def test_speed5_on_card_conforms(monkeypatch):
+    """1 key + 1 inter frame of 320x240 content whose chroma follows its
+    luma at speed 5 on the card: CFL wins blocks, the host deblock search
+    leaves K4 and K7 idle, and the output conforms as chip_smoke.py checks
+    it (CFL blocks re-derived; SGR and per-unit Wiener units through
+    sgr_np and lrf_np)."""
+    import chip_smoke
+    from rav1e_tpu_torch import kernels
+    from rav1e_tpu_torch.utils.content import make_frames_cfl
+
+    _card()
+    kernels.reset_counts()
+    data, recon, fes = chip_smoke.encode(make_frames_cfl(320, 240, 2),
+                                         check=True, mixed=True, speed=5,
+                                         size=(320, 240))
+    counts = dict(kernels.COUNTS)
+    assert all(counts[k] > 0 for k in ("cfl", "cdef_dir", "cdef_filter",
+                                       "wiener_lr_frame", "mc_pred")), counts
+    assert counts["deblock"] == counts["wiener_solve"] == 0, counts
+    assert chip_smoke.encode.cfl_blocks > 0
+    summary = chip_smoke.check_output(data, recon, fes, 2)
+    assert summary["filter_chain_np_frames"] == 2
+    assert chip_smoke.rederive_cfl(fes)["cfl_sbs_rederived"] > 0

@@ -412,25 +412,31 @@ def test_filter_chain_matches_jax():
 
 
 def test_filter_chain_refuses_cdef_and_lr():
-    """CDEF and the fused LR run in the device chain now; what stays
-    outside it raises NotImplementedError naming its ROADMAP item: LR with
-    the SGR search (speed <= 5), the LR decision outside the chain
-    (lrf_jax.lr_decide_device's path) and the host CDEF path behind the
-    deblock level search."""
+    """What stays outside the device chain raises NotImplementedError
+    naming its ROADMAP item: the LR decision of a frame whose chain ran no
+    LR stage without the SGR search (lrf_jax.lr_decide_device's path)."""
     from rav1e_tpu_torch.models.intra_frame import IntraFrameEncoder
-    from rav1e_tpu_torch.ops import filter_chain as tfc
-
-    base = _chain_frame(np.random.default_rng(SEED), 128, 128)
-    fe = SimpleNamespace(**{**base, "lrf": True, "sgr_search": True},
-                         device="cpu", _wf_dev_out=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-        tfc.launch_filter_chain(fe)
 
     enc = IntraFrameEncoder(64, 64, q_idx=100, device="cpu")
     enc.lrf = True
     enc._chain_lr = None
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
         enc._lr_decide()
+
+
+def test_filter_chain_sgr_route_and_host_filter_prepare():
+    """With the SGR search the chain runs without its fused LR stage and
+    hands back the deblocked planes for the host search; a speed-5 frame
+    (CDEF and LR after the host deblock level search) prepares."""
+    from rav1e_tpu_torch.models.intra_frame import IntraFrameEncoder
+    from rav1e_tpu_torch.ops import filter_chain as tfc
+
+    base = _chain_frame(np.random.default_rng(SEED), 128, 128)
+    fe = SimpleNamespace(**{**base, "lrf": True, "sgr_search": True},
+                         device="cpu", _wf_dev_out=None)
+    handle = tfc.launch_filter_chain(fe)
+    assert handle["lr"] is None
+    assert [d.shape for d in handle["db"]] == [(128, 128), (64, 64), (64, 64)]
 
     planes = [np.full((64, 64), 128), np.full((32, 32), 128),
               np.full((32, 32), 128)]
@@ -439,9 +445,8 @@ def test_filter_chain_refuses_cdef_and_lr():
                                 lf_levels=(9, 9, 9, 9), device="cpu")
         enc.lrf = lrf
         assert enc.lf_search
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1 item 10"):
-            enc.prepare(planes)
+        enc.prepare(planes)
+        assert enc._prepared
 
 
 # -- constants ------------------------------------------------------------------
