@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of rav1e_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--save-stream DIR]
 
 1. Prints the card's name and power limit (nvidia-smi).
-2. Builds the ten CUDA kernels (csrc/*.cu, one nvcc each, in parallel)
+2. Builds the eleven CUDA kernels (csrc/*.cu, one nvcc each, in parallel)
    and the native entropy library, and prints the build seconds.
 3. Drives the main path once: 8 key frames of 1920x1080 through Config ->
    Context in bench.py's keyframe configuration (speed-6 defaults, so
@@ -66,6 +66,26 @@
    KEY_TIMED frames must write the same bytes; a 320x240 key frame takes
    the small-frame CDEF route (_cdef_search, cdef_frame_device); a GOP of
    1 key + 3 inter frames at speed 5 takes the inter pass.
+10. Drives the default configuration: EncoderConfig(width=1920,
+   height=1080, quantizer=100, rdo_lookahead_frames=8), everything else
+   at its defaults (low_latency=False: pyramid sub-GOPs of 4 with
+   multiref, show_existing_frame packets), DEFAULT_FRAMES frames, with the
+   counts set to 0 before it.  Prints each inter frame's path (the inter
+   wavefront or the host inter path), references, reference_select,
+   compound block count, interpolation filter and LR types.  The first
+   ALTREF must take the inter wavefront, some host frame must code
+   compound blocks, some frame must reference GOLDEN or LAST2, and K10
+   must run through frame_me_map once for each reference of each host
+   frame, every call identical to me_fullpel_plain on the same card
+   tensors (the largest timed beside its bound).  Re-derives the
+   wavefront frames' sampled superblocks and DEFAULT_FILTER_FRAMES host
+   frames through deblock_np, cdef_np and lrf_np with the coded
+   parameters; prints each displayed frame's recon SHA-256 (with
+   --save-stream, writes the stream and the digests to DIR for
+   rav1e_tpu_torch/utils/stream_check.py to decode where libdav1d is);
+   a second encode must write the same bytes, and gives the frames/s and
+   stage seconds (me_maps, interp_probe, host_walk, deblock_host,
+   cdef_host, lr_decide, lr_emit).
 
 The line before the last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero.
@@ -78,9 +98,12 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 W, H, NFRAMES = 1920, 1080, 8
 MIXED_FRAMES = 16  # bench.py's mixed GOP: 1 key + 15 inter
+DEFAULT_FRAMES = 9  # EncoderConfig()'s pyramid: 1 key + two sub-GOPs of 4
+DEFAULT_FILTER_FRAMES = 2  # host frames re-derived through the numpy filters
 CFL_FRAMES = 2  # speed-5 key frames of content whose chroma follows luma
 GOP5_FRAMES = 4  # the speed-5 GOP: 1 key + 3 inter
 KEY_TIMED = 4  # frames of the keyframe path's timed second encode
@@ -119,13 +142,17 @@ def cuda_ms(fn, reps: int = 20) -> float:
 
 def encode(frames, check: bool, device: str = "cuda",
            filters: bool = True, mixed: bool = False, speed: int = 6,
-           size=None):
+           size=None, default: bool = False):
     """Encode `frames` through the public API on `device`, in bench.py's
     keyframe configuration (filters=False: with CDEF and loop restoration
     off), or with mixed in its mixed-GOP configuration (a key frame, then
-    inter frames), at SpeedSettings.from_preset(speed) and W x H (or
-    size).  With check, keep each frame's pre-filter planes and wavefront
-    records; the encoders are returned in coding order."""
+    inter frames), or with default at EncoderConfig()'s defaults
+    (low_latency=False: pyramid sub-GOPs, multiref, show_existing_frame
+    packets), at SpeedSettings.from_preset(speed) and W x H (or size),
+    quantizer 100.  With check, keep each frame's pre-filter planes,
+    output recon and wavefront records; the encoders that took a
+    wavefront are returned in coding order, and every encoder in
+    encode.all_fes."""
     from rav1e_tpu_torch import Config, EncoderConfig, SpeedSettings
     from rav1e_tpu_torch.api.context import EncoderError, EncoderStatus
     from rav1e_tpu_torch.models import inter_frame, intra_frame
@@ -136,7 +163,10 @@ def encode(frames, check: bool, device: str = "cuda",
     if not filters:
         ss.cdef = False
         ss.lrf = False
-    if mixed:
+    if default:
+        enc = EncoderConfig(width=w, height=h, quantizer=100,
+                            rdo_lookahead_frames=8, speed_settings=ss)
+    elif mixed:
         enc = EncoderConfig(width=w, height=h, quantizer=100,
                             max_key_frame_interval=240,
                             rdo_lookahead_frames=8, low_latency=True,
@@ -148,6 +178,7 @@ def encode(frames, check: bool, device: str = "cuda",
             low_latency=True, speed_settings=ss)
     cfg = Config(enc=enc, device=device)
     seen = []
+    all_fes = []
     orig_splice = filter_chain._splice
     orig_tiles = intra_frame.IntraFrameEncoder._encode_tiles_wavefront
     orig_install = inter_frame.InterFrameEncoder._install_wavefront
@@ -162,7 +193,10 @@ def encode(frames, check: bool, device: str = "cuda",
                 self.rec[0][:hh, :ww].copy(),
                 self.rec[1][: hh >> 1, : ww >> 1].copy(),
                 self.rec[2][: hh >> 1, : ww >> 1].copy()]
-        return orig_finish(self)
+        out = orig_finish(self)
+        self._chk_out = out[1]
+        all_fes.append(self)
+        return out
 
     def splice(fe, dev_rec, device):
         planes = orig_splice(fe, dev_rec, device)
@@ -208,13 +242,14 @@ def encode(frames, check: bool, device: str = "cuda",
         intra_frame.IntraFrameEncoder._encode_tiles_wavefront = orig_tiles
         inter_frame.InterFrameEncoder._install_wavefront = orig_install
         intra_frame.IntraFrameEncoder._finish_encode = orig_finish
-    if len(pkts) != len(frames):
+    if len(pkts) != len(frames) and not default:
         raise RuntimeError(f"{len(pkts)} packets for {len(frames)} frames")
     recon = [ctx._encoder.recon_by_input[i] for i in range(len(frames))]
     encode.stages = dict(ctx._encoder.stats.stage_seconds)
     encode.mode_counts = dict(ctx._encoder.stats.mode_counts)
     encode.cfl_blocks = ctx._encoder.stats.cfl_blocks
     encode.frame_types = [p.frame_type for p in pkts]
+    encode.all_fes = all_fes
     return [p.data for p in pkts], recon, seen
 
 
@@ -383,6 +418,7 @@ WORK = {
         _fwd_work(a, k, True)[1]),
     "mc_pred": _mc_work,
     "me_fullpel": _me_work,
+    "me_fullpel_frame": _me_work,
     "cdef_decide": _decide_work,
     "fwd_rd_float": lambda a, k: _fwd_work(a, k, False),
     "inv_txfm": lambda a, k: (a[0].numel() * 8,
@@ -429,7 +465,9 @@ class Capture:
                 # the host filter path (speed <= 5)
                 (cdef, "cdef_search_apply_device", "cdef_search"),
                 (cdef, "cdef_frame_device", "cdef_search"),
-                (lrf, "wiener_filter_frame_device", "lr_trial")):
+                (lrf, "wiener_filter_frame_device", "lr_trial"),
+                # the host inter path's ME maps (K10)
+                (device_pipeline, "frame_me_map", "me_maps")):
             self._stage(mod, name, stage)
         for mod, name, key, size in (
                 (cdef, "cdef_dir", "cdef_dir", lambda a, k: a[0].numel()),
@@ -453,7 +491,8 @@ class Capture:
                  lambda a, k: a[0].numel()),
                 (mc, "mc_block_batch", "mc_pred",
                  lambda a, k: a[2].numel() * a[6] * a[7]),
-                (device_pipeline, "me_fullpel", "me_fullpel",
+                (device_pipeline, "me_fullpel",
+                 lambda a, k: k.get("count", "me_fullpel"),
                  lambda a, k: a[0].numel()),
                 (cdef, "decide", "cdef_decide", lambda a, k: a[0].numel()),
                 (transforms, "fwd_rd_float", "fwd_rd_float",
@@ -945,41 +984,44 @@ def breakdown(frames, profiled: bool) -> dict:
     return out
 
 
-def check_output(data, recon, fes, filter_frames: int):
-    """decode == recon where libdav1d loads; SB re-derivation always, and
-    the numpy filter chain (deblock_np, cdef_np, lrf_np) over the first
-    filter_frames frames.  Returns a summary dict."""
+def check_decode(data, recon) -> str:
+    """Where libdav1d loads, the stream must decode to the recon (display
+    order, every frame and plane)."""
     import numpy as np
 
-    from rav1e_tpu_torch.utils import recon_check
-
-    summary = {}
     try:
         from rav1e_tpu_torch.utils import dav1d_oracle
 
         dav1d_oracle.Dav1dDecoder().close()
-        have_dav1d = True
     except OSError:
-        have_dav1d = False
-    if have_dav1d:
-        dec = dav1d_oracle.decode_stream(data)
-        if len(dec) != len(recon):
-            raise RuntimeError(f"dav1d decoded {len(dec)} of {len(recon)}")
-        for f, (d, r) in enumerate(zip(dec, recon)):
-            for p in range(3):
-                rp = np.asarray(r[p])
-                if not np.array_equal(d[p][: rp.shape[0], : rp.shape[1]],
-                                      rp.astype(np.uint8)):
-                    raise RuntimeError(f"dav1d decode != recon: frame {f} "
-                                       f"plane {p}")
-        summary["dav1d"] = "decode == recon, all frames and planes"
-    else:
         print("dav1d: libdav1d is absent on this machine; checking by "
               "re-derivation instead")
-        summary["dav1d"] = "absent"
+        return "absent"
+    dec = dav1d_oracle.decode_stream(data)
+    if len(dec) != len(recon):
+        raise RuntimeError(f"dav1d decoded {len(dec)} of {len(recon)}")
+    for f, (d, r) in enumerate(zip(dec, recon)):
+        for p in range(3):
+            rp = np.asarray(r[p])
+            if not np.array_equal(d[p][: rp.shape[0], : rp.shape[1]],
+                                  rp.astype(np.uint8)):
+                raise RuntimeError(f"dav1d decode != recon: frame {f} "
+                                   f"plane {p}")
+    return "decode == recon, all frames and planes"
+
+
+def rederive_sbs(fes) -> tuple:
+    """SB_SAMPLES device superblocks of each wavefront frame re-derived
+    from their records onto its pre-filter recon (inter blocks by mc_np
+    from LAST's output recon).  Returns (superblocks, those holding inter
+    blocks)."""
+    import numpy as np
+
+    from rav1e_tpu_torch.utils import recon_check
+
     rng = np.random.default_rng(0)
     checked = inter_sbs = 0
-    for fe, r in zip(fes, recon):
+    for fe in fes:
         wf, pre = fe._chk_wf, fe._chk_prefilter
         refs = fe.refs[1] if wf.has_mv else None  # LAST's output recon
         dev = np.argwhere(wf.geom.device_sb)
@@ -992,6 +1034,17 @@ def check_output(data, recon, fes, filter_frames: int):
             checked += 1
             inter_sbs += wf.has_mv and any(
                 b[4] == 13 for b in wf.sb_records(int(sr), int(sc)))
+    return checked, int(inter_sbs)
+
+
+def check_output(data, recon, fes, filter_frames: int):
+    """decode == recon where libdav1d loads; SB re-derivation always, and
+    the numpy filter chain (deblock_np, cdef_np, lrf_np) over the first
+    filter_frames frames.  Returns a summary dict."""
+    from rav1e_tpu_torch.utils import recon_check
+
+    summary = {"dav1d": check_decode(data, recon)}
+    checked, inter_sbs = rederive_sbs(fes)
     # the first filter_frames frames, or with inter frames the first
     # filter_frames of those
     inter = [f for f, fe in enumerate(fes) if fe._chk_wf.has_mv]
@@ -1001,7 +1054,7 @@ def check_output(data, recon, fes, filter_frames: int):
             raise RuntimeError(f"frame {f}: the numpy filter chain over the "
                                "pre-filter frame differs from the output")
     summary["sbs_rederived"] = checked
-    summary["sbs_rederived_with_inter_blocks"] = int(inter_sbs)
+    summary["sbs_rederived_with_inter_blocks"] = inter_sbs
     summary["filter_chain_np_frames"] = filter_frames
     summary["cdef_per_sb"] = sum(fe.cdef_sb is not None for fe in fes)
     summary["lr_units_restored"] = sum(
@@ -1047,9 +1100,11 @@ def mixed_gop(card: str) -> list:
     print(json.dumps({"mixed_path_launches": counts,
                       "first_encode_s": t_first, "frame_types": types,
                       "serialised_s": dict(secs), "card": card}))
-    # every counter but the speed-5 path's own (phase 9)
+    # every counter but the speed-5 path's own (phase 9) and the host
+    # inter path's (phase 10)
     missing = [k for k, v in counts.items()
-               if v == 0 and k not in ("cfl", "wiener_lr_frame")]
+               if v == 0 and k not in ("cfl", "wiener_lr_frame",
+                                       "me_fullpel_frame")]
     if missing:
         raise RuntimeError(f"kernels not launched on the mixed path: "
                            f"{missing}")
@@ -1101,6 +1156,13 @@ def mixed_gop(card: str) -> list:
 SPEED5_LAUNCHED = ("intra_pred", "fwd_txq", "inv_txfm", "cdef_dir",
                    "cdef_filter", "wiener_lr_frame", "cfl")
 SPEED5_IDLE = ("deblock", "wiener_solve")
+# the default configuration: the key frame and the first ALTREF take the
+# passes and the chain (K1-K10), the host frames K10 through frame_me_map,
+# K5 and K6 after the host deblock and K8 in frame mode for the LR trial
+DEFAULT_LAUNCHED = ("intra_pred", "fwd_txq", "inv_txfm", "deblock",
+                    "cdef_dir", "cdef_filter", "wiener_solve", "wiener_lr",
+                    "mc_pred", "me_fullpel", "fwd_txq_thin",
+                    "me_fullpel_frame", "wiener_lr_frame")
 
 
 def check_speed5_kernels(calls, counts, frames_per_run):
@@ -1356,6 +1418,151 @@ def speed5(card: str) -> list:
     return results
 
 
+def frame_path(fe) -> dict:
+    """What a default-config frame's encoder took: its path (the inter
+    wavefront, or the host inter path) and decisions."""
+    return {"path": "wavefront" if fe.wf_inter else "host",
+            "ref_ids": list(fe.ref_ids),
+            "reference_select": bool(fe.reference_select),
+            "comp_block_count": fe.comp_block_count,
+            "interp_filter": int(fe.interp_filter),
+            "lr_types": [int(t) for t in getattr(fe, "lr_types", ())]}
+
+
+def check_me_frame(calls, counts, frames_per_run):
+    """K10 on the host inter path: every frame_me_map call of the run
+    (`calls`: (src, ref, the map K10 wrote)) identical to me_fullpel_plain
+    on the same card tensors; the largest timed beside its plain version
+    and its bound.  No single PyTorch call computes the search (library_ms
+    null).  Returns the kernels JSON list."""
+    from rav1e_tpu_torch.models import device_pipeline as dp
+
+    out = []
+    entry = make_entry(out, counts, frames_per_run)
+    err = max(_same(mv, dp.me_fullpel_plain(s_, r_, 32), "me_fullpel "
+                    "(frame_me_map)") for s_, r_, mv in calls)
+    s_, r_, _mv = max(calls, key=lambda c: c[0].numel())
+    print(json.dumps({"me_fullpel_frame_calls": {
+        "calls": len(calls), "identical": len(calls),
+        "size": list(s_.shape)}}))
+    entry("me_fullpel_frame", "rav1e_tpu_torch/csrc/me_fullpel.cu",
+          "rav1e_tpu/models/device_pipeline.py:339", err,
+          cuda_ms(lambda: dp.me_fullpel(s_, r_, 32)),
+          cuda_ms(lambda: dp.me_fullpel_plain(s_, r_, 32), reps=3),
+          WORK["me_fullpel_frame"]((s_, r_), {}))
+    return out
+
+
+def default_gop(card: str) -> list:
+    """The default-configuration path (phase 10 of the module docstring).
+    Returns the kernels JSON entry of K10 on the host inter path."""
+    import torch
+
+    from rav1e_tpu_torch import kernels
+    from rav1e_tpu_torch.models import device_pipeline as dp
+    from rav1e_tpu_torch.models import mv_pred as mvp
+    from rav1e_tpu_torch.models.inter_frame import InterFrameEncoder
+    from rav1e_tpu_torch.obu.ivf import write_ivf_frame, write_ivf_header
+    from rav1e_tpu_torch.utils import recon_check
+    from rav1e_tpu_torch.utils.content import make_frames
+    from rav1e_tpu_torch.utils.stream_check import recon_digest
+
+    frames = make_frames(W, H, DEFAULT_FRAMES)
+    cap = Capture()
+    # every frame_me_map call's card tensors, for the parity check
+    me_calls = []
+    wrapped = dp.me_fullpel
+
+    def record(src, ref, n=32, count="me_fullpel"):
+        mv = wrapped(src, ref, n, count=count)
+        if count == "me_fullpel_frame":
+            me_calls.append((src, ref, mv))
+        return mv
+
+    dp.me_fullpel = record
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        data, recon, _wf = encode(frames, check=True, default=True)
+        torch.cuda.synchronize()
+    finally:
+        dp.me_fullpel = wrapped
+        cap.restore()
+    t_first = time.perf_counter() - t0
+    counts = dict(kernels.COUNTS)
+    fes = encode.all_fes
+    inter = [fe for fe in fes if isinstance(fe, InterFrameEncoder)]
+    host = [fe for fe in inter if not fe.wf_inter]
+    paths = [frame_path(fe) for fe in inter]
+    print(json.dumps({"default_path_launches": counts,
+                      "first_encode_s": t_first,
+                      "packets": encode.frame_types, "frames": paths,
+                      "stages_s": encode.stages, "card": card}))
+    if len(fes) != DEFAULT_FRAMES or len(inter) != DEFAULT_FRAMES - 1:
+        raise RuntimeError(f"{len(fes)} frames coded of {DEFAULT_FRAMES}")
+    if not (inter[0].wf_inter and inter[0].ref_ids == [mvp.LAST_FRAME]):
+        raise RuntimeError("the first ALTREF did not take the inter "
+                           "wavefront")
+    if not any(fe.reference_select and fe.comp_block_count for fe in host):
+        raise RuntimeError("no host frame coded compound blocks")
+    if not any({mvp.LAST2_FRAME, mvp.GOLDEN_FRAME} & set(fe.ref_ids)
+               for fe in inter):
+        raise RuntimeError("no frame referenced GOLDEN or LAST2")
+    want = sum(len(fe.ref_ids) for fe in host)
+    if counts["me_fullpel_frame"] != want or len(me_calls) != want:
+        raise RuntimeError(f"K10 ran {counts['me_fullpel_frame']} times on "
+                           f"the host path, for {want} references")
+    missing = [k for k in DEFAULT_LAUNCHED if counts[k] == 0]
+    if missing:
+        raise RuntimeError(f"kernels not launched on the default path: "
+                           f"{missing}")
+    print(json.dumps({"default_bound_ms_per_frame": {
+        k: v / DEFAULT_FRAMES for k, v in cap.bounds.items()},
+        "card": card}))
+    results = check_me_frame(me_calls, counts, DEFAULT_FRAMES)
+    del me_calls[:]
+
+    t1 = time.perf_counter()
+    wf_fes = [fe for fe in fes if hasattr(fe, "_chk_wf")]
+    checked, inter_sbs = rederive_sbs(wf_fes)
+    for fe in host[:DEFAULT_FILTER_FRAMES]:
+        if not recon_check.filters_match(fe, fe._chk_prefilter, fe._chk_out):
+            raise RuntimeError("a host frame's numpy filter chain over its "
+                               "pre-filter frame differs from the output")
+    digests = [recon_digest(r) for r in recon]
+    print(json.dumps({"default_output": {
+        "dav1d": check_decode(data, recon), "sbs_rederived": checked,
+        "sbs_rederived_with_inter_blocks": inter_sbs,
+        "host_frames_filter_chain_np": DEFAULT_FILTER_FRAMES,
+        "recon_sha256": digests},
+        "bytes": sum(map(len, data)), "check_s": time.perf_counter() - t1}))
+    if "--save-stream" in sys.argv:
+        # the stream and its recon digests, for a decode on a machine with
+        # libdav1d (python -m rav1e_tpu_torch.utils.stream_check)
+        out = Path(sys.argv[sys.argv.index("--save-stream") + 1])
+        out.mkdir(parents=True, exist_ok=True)
+        with open(out / "default.ivf", "wb") as fh:
+            write_ivf_header(fh, W, H, 30, 1, len(data))
+            for i, pkt in enumerate(data):
+                write_ivf_frame(fh, i, pkt)
+        (out / "default_recon.json").write_text(
+            json.dumps({"recon_sha256": digests}))
+
+    t2 = time.perf_counter()
+    data2, _, _ = encode(frames, check=False, default=True)
+    torch.cuda.synchronize()
+    t_enc = time.perf_counter() - t2
+    if data2 != data:
+        raise RuntimeError("the second default-config encode wrote other "
+                           "bytes")
+    print(json.dumps({"default_encode": {
+        "frames": DEFAULT_FRAMES, "size": f"{W}x{H}", "seconds": t_enc,
+        "fps": DEFAULT_FRAMES / t_enc, "stages_s": encode.stages,
+        "card": card}}))
+    return results
+
+
 def main() -> int:
     try:
         import torch
@@ -1459,6 +1666,7 @@ def main() -> int:
                       "card": card}))
     results += mixed_gop(card)
     results += speed5(card)
+    results += default_gop(card)
     print(json.dumps({"parity": {r["name"]: r["max_abs_err"]
                                  for r in results}}))
     if any(m == "jax" or m.startswith("jax.") or m == "rav1e_tpu"

@@ -31,9 +31,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # one counter per kernel, "fwd_txq_thin" for fwd_txq's launches with the
-# level-1 thinning of the inter race and "wiener_lr_frame" for wiener_lr's
-# launches in frame mode (the whole restored plane, no unit choice)
-COUNTS = {k: 0 for k in KERNELS + ("fwd_txq_thin", "wiener_lr_frame")}
+# level-1 thinning of the inter race, "wiener_lr_frame" for wiener_lr's
+# launches in frame mode (the whole restored plane, no unit choice) and
+# "me_fullpel_frame" for me_fullpel's launches from the host inter path's
+# frame_me_map
+COUNTS = {k: 0 for k in KERNELS + ("fwd_txq_thin", "wiener_lr_frame",
+                                   "me_fullpel_frame")}
 # nvcc's output of the last build of each kernel (ptxas: registers, spills)
 BUILD_LOGS: dict = {}
 _LIBS: dict = {}

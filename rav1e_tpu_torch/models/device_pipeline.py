@@ -15,9 +15,12 @@ is predicted by intra_pred (K1) and costed through the float-floor variant
 of fwd_txq (K2): fp32 transform, deadzone quantiser, tx-domain distortion
 and the level-magnitude rate model.
 
-The whole-frame RD maps, mode maps, the host ME map (frame_me_map) and
-the sharded analysis steps of the JAX module are not ported yet (ROADMAP
-queue 1, item 10).
+The same search serves the host inter path of the frames outside the inter
+wavefront (frame_me_map: one map a reference, over the edge-padded
+reference plane).
+
+The whole-frame RD maps, mode maps and the sharded analysis steps of the
+JAX module are not ported yet (ROADMAP queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -205,11 +208,13 @@ def me_fullpel_plain(src: torch.Tensor, ref: torch.Tensor,
     return mv_a + d_t[torch.stack(costs2).argmin(0)]
 
 
-def me_fullpel(src: torch.Tensor, ref: torch.Tensor,
-               n: int = 32) -> torch.Tensor:
+def me_fullpel(src: torch.Tensor, ref: torch.Tensor, n: int = 32,
+               count: str = "me_fullpel") -> torch.Tensor:
     """Full-pel motion map of the n x n blocks: (H/n, W/n, 2) int32 in
     pixels (K10).  src, ref: (H, W) planes of the same shape, H and W
-    multiples of 64 (uint8 on the card)."""
+    multiples of 64 (uint8 on the card).  count: the launch counter of the
+    caller's route ("me_fullpel" in the inter pass, "me_fullpel_frame"
+    from frame_me_map)."""
     if src.device.type == "cpu":
         return me_fullpel_plain(src, ref, n)
     if n != 32 or src.dtype != torch.uint8 or ref.dtype != torch.uint8:
@@ -222,15 +227,30 @@ def me_fullpel(src: torch.Tensor, ref: torch.Tensor,
                           device=dev)
     mv = torch.empty((Hh // n, Ww // n, 2), dtype=torch.int32, device=dev)
     fn = kernels.lib("me_fullpel").me_fullpel
-    kernels.COUNTS["me_fullpel"] += 1
+    kernels.COUNTS[count] += 1
     kernels.check(fn(s.data_ptr(), s.stride(0), r.data_ptr(), r.stride(0),
                      Hh, Ww, quarter.data_ptr(), mv.data_ptr(),
                      kernels.stream_ptr(s)), "me_fullpel")
     return mv
 
 
-def frame_me_map(*_args, **_kw):
-    """Host wrapper of the ME map for the host inter search paths."""
-    raise NotImplementedError(
-        "frame_me_map (host inter search, multi-reference and pyramid "
-        "frames): ROADMAP queue 1 item 10")
+def frame_me_map(src_y: np.ndarray, ref_y: np.ndarray, n: int = 32,
+                 bit_depth: int = 8, device="cuda") -> np.ndarray:
+    """The ME map of the host inter search (device_pipeline.py:339 of the
+    JAX package): me_fullpel over two host int32 planes of the same
+    64-aligned shape, as (by, bx, 2) int32 full-pel MVs in 1/8 pel."""
+    if bit_depth != 8:
+        raise NotImplementedError(
+            "frame_me_map above 8 bits (K10 reads uint8 planes): ROADMAP "
+            "queue 1 item 10")
+    src_y, ref_y = np.asarray(src_y), np.asarray(ref_y)
+    if src_y.shape != ref_y.shape or src_y.shape[0] % 64 \
+            or src_y.shape[1] % 64:
+        raise ValueError("frame_me_map: planes of one 64-aligned shape")
+    for a in (src_y, ref_y):
+        if a.min() < 0 or a.max() > 255:
+            raise ValueError("frame_me_map: samples outside 0..255")
+    up = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.uint8),
+                                   device=device)
+    mv = me_fullpel(up(src_y), up(ref_y), n, count="me_fullpel_frame")
+    return mv.cpu().numpy().astype(np.int32) * 8

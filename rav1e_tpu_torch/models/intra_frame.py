@@ -218,7 +218,12 @@ class IntraFrameEncoder:
                 self.prepare(planes)
         self._p1_data = self._encode_tiles()
         self._chain_launch = None
-        if not (self.lf_search and any(self.lf_levels)):
+        # the device chain filters the recon of a wavefront pass (the JAX
+        # package gates it on the pass's device-resident source,
+        # filter_chain_jax.py:315); frames coded by the host walk take the
+        # host filter path of _finish_encode
+        if (getattr(self, "_wf_dev_out", None) is not None
+                and not (self.lf_search and any(self.lf_levels))):
             from rav1e_tpu_torch.ops.filter_chain import launch_filter_chain
 
             with self.stats.stage("filters"):
@@ -1122,10 +1127,10 @@ class IntraFrameEncoder:
         """Fused device LR decision (speed-6 flow: none-vs-Wiener with
         frame-level taps, no SGR search), read from the filter chain's
         fused LR stage (ops/filter_chain.py: taps by K7, trials, unit
-        choice and composition by K8).  A frame whose chain did not run
-        that stage (lossless, or outside the chain's 8-bit 4:2:0
-        envelope) would need the separate decision of the JAX package
-        (lrf_jax.lr_decide_device), which is not ported."""
+        choice and composition by K8).  A frame without that stage (the
+        host filter path of host-coded frames) solves the tap sets on the
+        host: all zero, every unit is RESTORE_NONE (True); else False, and
+        _lr_decide's host per-unit path runs (K8 in frame mode)."""
         from rav1e_tpu_torch.ops import lrf_np as lr
 
         self._lr_chroma = {1: {}, 2: {}}
@@ -1167,9 +1172,41 @@ class IntraFrameEncoder:
                     tuple(int(t) for t in tr[1]))
                 self.lr_types[plane] = 2  # coded RESTORE_WIENER
             return True
+        with self.stats.stage("lr_solve_y"):
+            vt, ht = lr.solve_wiener(
+                self.rec[0][: self.out_h, : self.out_w],
+                self.src[0][: self.out_h, : self.out_w])
+        taps_y = (vt, ht) if (vt, ht) != ((0, 0, 0), (0, 0, 0)) else None
+        taps_c = {}
+        cw = (self.out_w + 1) >> 1
+        ch = (self.out_h + 1) >> 1
+        if self._is420:
+            for plane in (1, 2):
+                vtc, htc = lr.solve_wiener(
+                    self.rec[plane][:ch, :cw],
+                    self.src[plane][:ch, :cw])
+                vtc = (0, int(vtc[1]), int(vtc[2]))  # chroma outer tap is 0
+                htc = (0, int(htc[1]), int(htc[2]))
+                if (vtc, htc) != ((0, 0, 0), (0, 0, 0)):
+                    taps_c[plane] = (vtc, htc)
+        if taps_y is None and not taps_c:
+            rows = lr.unit_ranges(self.LR_UNIT, self.out_h, shifted=True)
+            cols = lr.unit_ranges(self.LR_UNIT, self.out_w)
+            for ur in range(len(rows)):
+                for uc in range(len(cols)):
+                    self._lr_params[(ur, uc)] = None
+            return True
+        # the JAX package's separate device decision (lr_decide_device)
+        # reads the chain's device planes, the chroma among them; a frame
+        # without them (the host filter path keeps luma planes at most)
+        # takes the host per-unit path, where that decision declines too
+        if (getattr(self, "_dev_db_c", None) is None
+                or getattr(self, "_dev_cdef_c", None) is None):
+            return False
         raise NotImplementedError(
-            "the loop-restoration decision outside the device filter chain "
-            "(lrf_jax.lr_decide_device): ROADMAP queue 1 item 10")
+            "the loop-restoration decision from the device planes of a "
+            "chain without its LR stage (lrf_jax.lr_decide_device): "
+            "ROADMAP queue 1 item 10")
 
     def _lr_decide_chroma(self) -> None:
         """Chroma restoration (reference: src/lrf.rs restores all 3

@@ -344,11 +344,16 @@ def find_mv_stack(
                                 m2 = (-mv[0], -mv[1])
                             ref_diff_mvs[li].append(m2)
                 else:
+                    # both lists of a compound neighbor are taken, so the
+                    # stack can reach 3 entries here (spec
+                    # add_extra_mv_candidate; libaom
+                    # process_single_ref_mv_candidate, dav1d
+                    # add_single_extended_candidate)
                     if sb_map.get(cref, 0) != sb_map.get(rf0, 0):
                         mv = (-mv[0], -mv[1])
                     mv = lower_mv_precision(mv, allow_hp)
                     cand = (mv, (0, 0))
-                    if cand not in stack and len(stack) < 2:
+                    if cand not in stack:
                         stack.append(cand)
                         weights.append(2)
 

@@ -284,17 +284,12 @@ class FrameEncoder:
     def encode_inter(self, frame, q_idx, order_hint, ref_slots: dict,
                      show_frame: bool, refresh_flags: int,
                      imp_scale=None, switch: bool = False) -> bytes:
-        """Inter frame predicting from LAST.  ref_slots: {ref_id: slot};
-        LAST doubles as the primary ref (CDF inheritance).  The pyramid's
-        BWDREF/ALTREF/GOLDEN/LAST2 references (low_latency=False,
-        multiref) are not ported."""
+        """General inter frame.  ref_slots: {ref_id: slot} for the refs the
+        block search may use (1=LAST, 2=LAST2, 4=GOLDEN, 5=BWDREF,
+        7=ALTREF); LAST doubles as the primary ref (CDF inheritance)."""
         from rav1e_tpu_torch.models import mv_pred as mvp
         from rav1e_tpu_torch.models.inter_frame import InterFrameEncoder
 
-        if set(ref_slots) != {mvp.LAST_FRAME}:
-            raise NotImplementedError(
-                "inter frames with references beyond LAST (pyramid, "
-                "multiref): ROADMAP queue 1 item 10")
         q = self.cfg.quantizer if q_idx is None else q_idx
         q = int(np.clip(q, 1, 255))
         lf = self.lf_levels_for(q)

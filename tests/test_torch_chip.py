@@ -4,9 +4,9 @@ These tests need an NVIDIA GPU and nvcc: each builds its kernel from
 rav1e_tpu_torch/csrc, launches it on CUDA tensors and holds the result
 against the plain version on the same inputs (identical for intra_pred,
 inv_txfm, deblock, cdef_dir, cdef_filter, wiener_solve, wiener_lr, also
-in frame mode, mc_pred, me_fullpel and cfl; fwd_txq, with and without the
-inter race's thinning, within its rounding-tie share).  Without a
-card they skip.  On a machine without JAX (the tests' conftest imports
+in frame mode, mc_pred, me_fullpel, also through frame_me_map, and cfl;
+fwd_txq, with and without the inter race's thinning, within its
+rounding-tie share).  Without a card they skip.  On a machine without JAX (the tests' conftest imports
 it) run them as
 
     python -m pytest --noconftest tests/test_torch_chip.py
@@ -468,3 +468,53 @@ def test_speed5_on_card_conforms(monkeypatch):
     summary = chip_smoke.check_output(data, recon, fes, 2)
     assert summary["filter_chain_np_frames"] == 2
     assert chip_smoke.rederive_cfl(fes)["cfl_sbs_rederived"] > 0
+
+
+def test_frame_me_map_on_card(monkeypatch):
+    """frame_me_map on the card: K10 over an edge-padded 1080p reference,
+    counted as the host route (me_fullpel_frame, not me_fullpel), equal to
+    the plain version in 1/8 pel."""
+    from rav1e_tpu_torch import kernels
+    from rav1e_tpu_torch.models import device_pipeline as dp
+
+    dev = _card()
+    rng = np.random.default_rng(SEED + 339)
+    h, w, rh = 1088, 1920, 1080
+    src = rng.integers(0, 256, (h, w)).astype(np.int32)
+    pad = np.empty_like(src)
+    pad[:rh] = np.roll(src[:rh], (3, -5), (0, 1))
+    pad[rh:] = pad[rh - 1 : rh]
+    before = dict(kernels.COUNTS)
+    got = dp.frame_me_map(src, pad, 32, device=dev)
+    assert kernels.COUNTS["me_fullpel_frame"] == \
+        before["me_fullpel_frame"] + 1
+    assert kernels.COUNTS["me_fullpel"] == before["me_fullpel"]
+    t = lambda a: torch.as_tensor(a.astype(np.uint8))
+    assert np.array_equal(got, dp.me_fullpel_plain(t(src), t(pad),
+                                                   32).numpy() * 8)
+
+
+def test_default_gop_on_card_conforms():
+    """1 key + 4 inter frames of 320x240 at EncoderConfig()'s defaults on
+    the card: the first ALTREF on the inter wavefront, the host frames'
+    ME maps through frame_me_map (one a reference), compound blocks, and
+    two host frames re-derive through the numpy filters."""
+    import chip_smoke
+    from rav1e_tpu_torch import kernels
+    from rav1e_tpu_torch.models.inter_frame import InterFrameEncoder
+    from rav1e_tpu_torch.utils import recon_check
+    from rav1e_tpu_torch.utils.content import make_frames
+
+    _card()
+    kernels.reset_counts()
+    chip_smoke.encode(make_frames(320, 240, 5), check=True, default=True,
+                      size=(320, 240))
+    inter = [fe for fe in chip_smoke.encode.all_fes
+             if isinstance(fe, InterFrameEncoder)]
+    host = [fe for fe in inter if not fe.wf_inter]
+    assert inter[0].wf_inter and len(host) == 3
+    assert kernels.COUNTS["me_fullpel_frame"] == sum(len(fe.ref_ids)
+                                                     for fe in host)
+    assert sum(fe.comp_block_count for fe in host) > 0
+    for fe in host[:2]:
+        assert recon_check.filters_match(fe, fe._chk_prefilter, fe._chk_out)

@@ -430,15 +430,42 @@ def test_native_coder_failure_raises(monkeypatch):
 
 
 def test_references_beyond_last_raise():
-    """The pyramid's and multiref's references (BWDREF, ALTREF, GOLDEN,
-    LAST2) are outside this slice: encode_inter raises naming ROADMAP
-    item 10 before any work."""
-    from rav1e_tpu_torch import Config, EncoderConfig
+    """An inter frame with LAST and ALTREF on both temporal sides (the
+    pyramid's inner frames) encodes on the host inter path with
+    reference_select and compound blocks, and the stream decodes to its
+    recon.  At 192x128 nothing runs a wavefront: the hidden ALTREF and the
+    inner frame both take the host path, with the diamond search (no ME
+    map under 320x240).  The name is kept from when this raised."""
+    from rav1e_tpu_torch import EncoderConfig
+    from rav1e_tpu_torch.models import inter_frame as tif
     from rav1e_tpu_torch.models.pipeline import FrameEncoder
     from rav1e_tpu_torch.utils.content import make_frames
 
-    cfg = Config(enc=EncoderConfig(width=W, height=H), device="cpu")
-    enc = FrameEncoder(cfg.enc, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        enc.encode_inter(make_frames(W, H, 1)[0], 100, 1, {1: 0, 7: 1},
-                         show_frame=True, refresh_flags=1)
+    w, h = 192, 128
+    fes = []
+    orig = tif.InterFrameEncoder._finish_encode
+
+    def spy(fe):
+        fes.append(fe)
+        return orig(fe)
+
+    tif.InterFrameEncoder._finish_encode = spy
+    try:
+        enc = FrameEncoder(EncoderConfig(width=w, height=h), device="cpu")
+        frames = make_frames(w, h, 3)
+        data = [enc.encode_key_frame(frames[0], 100)]
+        key_recon = enc.last_recon
+        # the ALTREF: hidden, LAST only, into slot 1
+        data.append(enc.encode_inter(frames[2], 100, 2, {1: 0},
+                                     show_frame=False, refresh_flags=1 << 1))
+        data.append(enc.encode_inter(frames[1], 100, 1, {1: 0, 7: 1},
+                                     show_frame=True, refresh_flags=0))
+    finally:
+        tif.InterFrameEncoder._finish_encode = orig
+    alt, mid = fes
+    assert not alt.wf_inter and not alt.reference_select
+    assert not mid.wf_inter and mid.ref_ids == [1, 7]
+    assert mid.reference_select and mid.sign_bias == {1: 0, 7: 1}
+    assert mid.comp_block_count > 0
+    assert mid._me_maps == {}
+    _decodes_to(data, [key_recon, enc.last_recon])

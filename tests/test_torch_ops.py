@@ -411,17 +411,63 @@ def test_filter_chain_matches_jax():
         assert np.array_equal(rfe.rec[p], jfe.rec[p]), p
 
 
-def test_filter_chain_refuses_cdef_and_lr():
-    """What stays outside the device chain raises NotImplementedError
-    naming its ROADMAP item: the LR decision of a frame whose chain ran no
-    LR stage without the SGR search (lrf_jax.lr_decide_device's path)."""
-    from rav1e_tpu_torch.models.intra_frame import IntraFrameEncoder
+@pytest.mark.parametrize("kind", ["restores", "clean"])
+def test_chainless_lr_decide_matches_jax_per_unit_params(kind):
+    """The loop-restoration decision of a frame the device chain did not
+    filter (the host filter path of host-coded inter frames, speed 6, no
+    SGR search): the host tap solves, then the per-unit Wiener trial with
+    K8 in frame mode.  The port's _lr_decide gives the JAX package's
+    per-unit params (kind, taps, restored samples), chroma units, chroma
+    taps and LR types; a recon equal to its source solves all-zero taps
+    and leaves every unit RESTORE_NONE."""
+    from rav1e_tpu.models.intra_frame import IntraFrameEncoder as JEnc
+    from rav1e_tpu_torch.models.intra_frame import IntraFrameEncoder as TEnc
 
-    enc = IntraFrameEncoder(64, 64, q_idx=100, device="cpu")
-    enc.lrf = True
-    enc._chain_lr = None
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
+    rng = np.random.default_rng(SEED + 1414)
+    w, h = 192, 128
+    planes = [_blocky(rng, h, w), _blocky(rng, h >> 1, w >> 1),
+              _blocky(rng, h >> 1, w >> 1)]
+    if kind == "restores":
+        # a blurred, noisy "decoded" frame the Wiener taps can sharpen
+        rec = [np.clip((p + np.roll(p, 1, 0) + np.roll(p, 1, 1)) // 3
+                       + rng.integers(-2, 3, p.shape), 0, 255)
+               for p in planes]
+    else:
+        rec = [p.copy() for p in planes]
+    encs = []
+    for cls, kw in ((JEnc, {}), (TEnc, {"device": "cpu"})):
+        enc = cls(w, h, q_idx=100, cdef_damping=4, **kw)
+        enc.lrf = True
+        enc.prepare([p.copy() for p in planes], launch=False)
+        enc.rec = [p.astype(np.int32).copy() for p in rec]
+        enc._deblock_copy = [p.astype(np.int32).copy() for p in rec]
+        enc._chain_lr = None
         enc._lr_decide()
+        encs.append(enc)
+    jenc, tenc = encs
+    assert not tenc.sgr_search
+    assert tenc.lr_types == jenc.lr_types
+    assert tenc._lr_params.keys() == jenc._lr_params.keys()
+    for key, jp in jenc._lr_params.items():
+        tp = tenc._lr_params[key]
+        if jp is None:
+            assert tp is None, key
+            continue
+        assert tp[:3] == jp[:3], key
+        assert np.array_equal(np.asarray(tp[3]), np.asarray(jp[3])), key
+    assert tenc._lr_chroma_taps == jenc._lr_chroma_taps
+    for plane in (1, 2):
+        jc, tc = jenc._lr_chroma[plane], tenc._lr_chroma[plane]
+        assert tc.keys() == jc.keys()
+        for key, ju in jc.items():
+            assert (tc[key] is None) == (ju is None), (plane, key)
+            if ju is not None:
+                assert np.array_equal(tc[key], ju), (plane, key)
+    used = [p for p in tenc._lr_params.values() if p is not None]
+    if kind == "restores":
+        assert used and used[0][0] == "wiener"
+    else:
+        assert not used and tenc.lr_types == [1, 0, 0]
 
 
 def test_filter_chain_sgr_route_and_host_filter_prepare():
