@@ -27,7 +27,9 @@
    from their records with the numpy oracles onto the pre-filter recon,
    and on FILTER_FRAMES frames deblock_np, cdef_np with each superblock's
    strengths and lrf_np's Wiener filter on the chosen units, over the
-   pre-filter frame, give the output recon exactly.
+   pre-filter frame, give the output recon exactly.  Prints each frame's
+   recon SHA-256 and its restoring LR units on the bottom unit row (with
+   --save-stream, writes DIR/key.ivf and DIR/key_recon.json).
 6. Drives the keyframe path with CDEF and loop restoration off on 2
    frames, with the counts set to 0 before it: K1-K4 must launch, and its
    output is checked the same way.
@@ -86,6 +88,28 @@
    a second encode must write the same bytes, and gives the frames/s and
    stage seconds (me_maps, interp_probe, host_walk, deblock_host,
    cdef_host, lr_decide, lr_emit).
+11. Drives the path above 8 bits: EncoderConfig(width=1920, height=1080,
+   quantizer=100, rdo_lookahead_frames=8, bit_depth=10), HBD_FRAMES
+   frames of 10-bit bench content (1 key + one sub-GOP of 4), with the
+   counts set to 0 before it.  No frame may take the wavefront or the
+   chain (K4, K7, K9, K11 and the pass's K3 and K10 idle): the key frame
+   must take frame_rd_maps (K1 and K2's float variant twice each), the
+   inter frames the host inter path with K10 through frame_me_map on
+   uint16 planes once a reference, every frame the CDEF search on the
+   card at 10 bits (K5, K6) and K8's frame mode at 10 bits.  Holds every
+   K5, K6, K8 and K10 call of the path against its plain version on the
+   same card tensors (identical), and frame_rd_maps against the same
+   route through the plain versions (modes, nnz, split32 identical but at
+   counted near-ties); times each route beside its bound (frame_rd_maps'
+   K2 beside the torch.matmul transform); then K5, K6, K8 (stripes 64
+   and 32) and K10 on seeded 12-bit 1920x1088 planes with maximum-contrast
+   blocks, a 320x240 12-bit key + inter encode and a 320x240 8-bit
+   lossless key frame (through FrameEncoder: the Context refuses
+   quantizer 0, ROADMAP F6); re-derives HBD_FILTER_FRAMES frames through
+   deblock_np, cdef_np and lrf_np at 10 bits; prints the recon digests
+   (16-bit samples; --save-stream writes DIR/hbd.ivf and
+   DIR/hbd_recon.json); a second encode must write the same bytes, and
+   gives the frames/s and stage seconds.
 
 The line before the last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero.
@@ -113,6 +137,10 @@ INTER_FILTER_FRAMES = 2  # inter frames of the mixed GOP re-derived so
 OFF_FRAMES = 2  # frames of the CDEF/LR-off path
 WIENER_TIE = 1e-9  # |coef * 128 - (k + .5)| where a tap may round apart
 FDCT_TIE_SHARE = 1e-3
+RD_TIE = 1e-5  # relative gap of two RD costs that fp32 order may flip
+HBD_FRAMES = 5  # EncoderConfig()'s pyramid: 1 key + one sub-GOP of 4
+HBD_BD = 10
+HBD_FILTER_FRAMES = 2  # frames re-derived through the numpy filters
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 PEAK_FP32 = 67e12  # H100 SXM fp32 outside the tensor cores, FLOP/s
 
@@ -142,17 +170,16 @@ def cuda_ms(fn, reps: int = 20) -> float:
 
 def encode(frames, check: bool, device: str = "cuda",
            filters: bool = True, mixed: bool = False, speed: int = 6,
-           size=None, default: bool = False):
+           size=None, default: bool = False, bit_depth: int = 8):
     """Encode `frames` through the public API on `device`, in bench.py's
     keyframe configuration (filters=False: with CDEF and loop restoration
     off), or with mixed in its mixed-GOP configuration (a key frame, then
     inter frames), or with default at EncoderConfig()'s defaults
     (low_latency=False: pyramid sub-GOPs, multiref, show_existing_frame
-    packets), at SpeedSettings.from_preset(speed) and W x H (or size),
-    quantizer 100.  With check, keep each frame's pre-filter planes,
-    output recon and wavefront records; the encoders that took a
-    wavefront are returned in coding order, and every encoder in
-    encode.all_fes."""
+    packets), at SpeedSettings.from_preset(speed), W x H (or size) and
+    bit_depth.  With check, keep each frame's pre-filter planes, output
+    recon and wavefront records; the encoders that took a wavefront are
+    returned in coding order, and every encoder in encode.all_fes."""
     from rav1e_tpu_torch import Config, EncoderConfig, SpeedSettings
     from rav1e_tpu_torch.api.context import EncoderError, EncoderStatus
     from rav1e_tpu_torch.models import inter_frame, intra_frame
@@ -165,17 +192,18 @@ def encode(frames, check: bool, device: str = "cuda",
         ss.lrf = False
     if default:
         enc = EncoderConfig(width=w, height=h, quantizer=100,
-                            rdo_lookahead_frames=8, speed_settings=ss)
+                            rdo_lookahead_frames=8, speed_settings=ss,
+                            bit_depth=bit_depth)
     elif mixed:
         enc = EncoderConfig(width=w, height=h, quantizer=100,
                             max_key_frame_interval=240,
                             rdo_lookahead_frames=8, low_latency=True,
-                            speed_settings=ss)
+                            speed_settings=ss, bit_depth=bit_depth)
     else:
         enc = EncoderConfig(
             width=w, height=h, quantizer=100, min_key_frame_interval=1,
             max_key_frame_interval=1, rdo_lookahead_frames=8,
-            low_latency=True, speed_settings=ss)
+            low_latency=True, speed_settings=ss, bit_depth=bit_depth)
     cfg = Config(enc=enc, device=device)
     seen = []
     all_fes = []
@@ -290,6 +318,7 @@ def _cdef_filter_work(a, k):
     h, w = a[0].shape
     ny, nc = a[0].numel(), 2 * a[1].numel()
     dirs, var, act = a[6], a[7], a[8].to(torch.bool)
+    sc = (a[12] if len(a) > 12 else 8) - 8  # strengths << (bd - 8)
     nb, nsb = dirs.numel(), -(-h // 64) * -(-w // 64)
 
     def ops(pri, sec, samples):  # per-block strengths, samples a block
@@ -299,15 +328,16 @@ def _cdef_filter_work(a, k):
                     * samples).sum())
 
     if a[10] == cdef.SEARCH:
-        n = sum(ops(cdef._adjust(p, var), s, 64) for p, s in cdef.Y_CANDIDATES)
+        n = sum(ops(cdef._adjust(p << sc, var), s, 64)
+                for p, s in cdef.Y_CANDIDATES)
         n += sum(ops(p, 0, 32) for p, _ in cdef.UV_CANDIDATES)
         n += (ny * len(cdef.Y_CANDIDATES) + nc * len(cdef.UV_CANDIDATES)) \
             * SSE_OPS
-        return (ny + nc) * 8 + nsb * 44 + nb * 9, n
+        return (ny + nc) * 8 + nsb * 88 + nb * 9, n
     nby, nbx = dirs.shape
     idx_b = a[11].long().repeat_interleave(8, 0) \
         .repeat_interleave(8, 1)[:nby, :nbx]
-    ypri, ysec, _, uvpri, _ = cdef._cand_maps(dirs, var, idx_b)
+    ypri, ysec, _, uvpri, _ = cdef._cand_maps(dirs, var, idx_b, sc)
     return ((ny + nc) * 8 + nsb * 4 + nb * 9,
             ops(ypri, ysec, 64) + ops(uvpri, 0, 32))
 
@@ -350,13 +380,14 @@ def _mc_work(a, k):
 
 def _me_work(a, k):
     """Bytes and operations of one K10 call (its two launches): both
-    planes read once (uint8), two int32 words a 32x32 block out; the 4x4
-    sums of both planes, the 289 quarter-resolution SADs of 64 terms and
-    the 25 full-resolution SADs of 1024 terms a block, and both argmins."""
+    planes read once (uint8 or uint16), two int32 words a 32x32 block out;
+    the 4x4 sums of both planes, the 289 quarter-resolution SADs of 64
+    terms and the 25 full-resolution SADs of 1024 terms a block, and both
+    argmins."""
     src, ref = a[0], a[1]
     hh, ww = src.shape
     nb = (hh // 32) * (ww // 32)
-    return (src.numel() + ref.numel() + nb * 8,
+    return ((src.numel() + ref.numel()) * src.element_size() + nb * 8,
             2 * (hh * ww // 16) * 15 + nb * (289 * 64 + 25 * 1024) * SAD_OPS
             + nb * (289 + 25) * 2)
 
@@ -403,14 +434,29 @@ def _decide_work(a, k):
             + nsb * 4 + 16, nsb * 8 * 5 + skip.numel())
 
 
+def _intra_work(a, nch):
+    """K1 (intra_pred) writing nch channels: the edges and availability
+    flags read, nch predictions of every lane written; ~10 a sample."""
+    out = a[0].shape[0] * nch * a[4] ** 2
+    return a[0].numel() * 8 + a[2].numel() * 2 + out * 4, out * 10
+
+
+def _rd_channels():
+    from rav1e_tpu_torch.models.device_pipeline import _CHANNELS
+
+    return _CHANNELS
+
+
 # (bytes, operations) of one call of each kernel from its arguments: each
 # input read once, each output written once; operations are fp32 FLOPs
 # (K2) or integer operations (the rest), counted per sample
 WORK = {
-    "intra_pred": lambda a, k: (
-        a[0].numel() * 8 + a[2].numel() * 2
-        + a[0].shape[0] * (61 if a[5] else 7) * a[4] ** 2 * 4,
-        a[0].shape[0] * (61 if a[5] else 7) * a[4] ** 2 * 10),
+    "intra_pred": lambda a, k: _intra_work(a, 61 if a[5] else 7),
+    # K1 under predict_all (the band maps, frame_rd_maps): the kernel
+    # writes all 61 channels, the function needs the 10 candidates'
+    "band_intra_pred": lambda a, k: _intra_work(a, len(_rd_channels())),
+    "frame_rd_maps_intra_pred": lambda a, k: _intra_work(
+        a, len(_rd_channels())),
     "fwd_txq": lambda a, k: _fwd_work(a, k, True),
     # K2 with the inter race's thinning: one float threshold a block more
     "fwd_txq_thin": lambda a, k: (
@@ -448,15 +494,18 @@ class Capture:
     inputs of each kernel's largest call (cloned) and sums the bound of
     every call by stage (the wavefront pass, the band maps, the filter
     chain): the least time the card could take for the stage's kernel
-    work."""
+    work.  For the functions named in `keep`, also every call's
+    (arguments, keywords, result) in `every[name]`, for the parity of
+    each call against the plain version on the same card tensors."""
 
-    def __init__(self):
+    def __init__(self, keep=()):
         from rav1e_tpu_torch.models import device_pipeline
         from rav1e_tpu_torch.ops import (cdef, deblock, filter_chain, intra,
                                          lrf, mc, transforms)
 
         self.calls = {}
         self.bounds = {}
+        self.every = {name: [] for name in keep}
         self.stage = "wavefront_pass"
         self._undo = []
         for mod, name, stage in (
@@ -467,7 +516,9 @@ class Capture:
                 (cdef, "cdef_frame_device", "cdef_search"),
                 (lrf, "wiener_filter_frame_device", "lr_trial"),
                 # the host inter path's ME maps (K10)
-                (device_pipeline, "frame_me_map", "me_maps")):
+                (device_pipeline, "frame_me_map", "me_maps"),
+                # the host walk's RD maps above 8 bits (K1, K2)
+                (device_pipeline, "frame_rd_maps", "rd_maps")):
             self._stage(mod, name, stage)
         for mod, name, key, size in (
                 (cdef, "cdef_dir", "cdef_dir", lambda a, k: a[0].numel()),
@@ -483,7 +534,10 @@ class Capture:
                                else "wiener_lr_frame_32"),
                  lambda a, k: a[4] * a[5]),
                 (intra, "cfl", "cfl", lambda a, k: a[1].numel()),
-                (intra, "intra_pred", "intra_pred",
+                (intra, "intra_pred",
+                 lambda a, k: {"band_maps": "band_intra_pred",
+                               "rd_maps": "frame_rd_maps_intra_pred"}.get(
+                                   self.stage, "intra_pred"),
                  lambda a, k: a[0].shape[0] * (61 if a[5] else 7) * a[4] ** 2),
                 (transforms, "fwd_txq",
                  lambda a, k: ("fwd_txq" if k.get("thr") is None
@@ -509,7 +563,7 @@ class Capture:
         def run(*a, **k):
             self.stage = stage
             try:
-                return orig(*a, **k)
+                return self._keep(name, orig, a, k)
             finally:
                 self.stage = "wavefront_pass"
 
@@ -534,10 +588,16 @@ class Capture:
             if kk_ not in self.calls or n > self.calls[kk_][0]:
                 self.calls[kk_] = (n, tuple(clone(v) for v in a),
                                    {kk: clone(v) for kk, v in k.items()})
-            return orig(*a, **k)
+            return self._keep(name, orig, a, k)
 
         setattr(mod, name, spy)
         self._undo.append((mod, name, orig))
+
+    def _keep(self, name, orig, a, k):
+        out = orig(*a, **k)
+        if name in self.every:
+            self.every[name].append((a, k, out))
+        return out
 
     def restore(self):
         for mod, name, orig in self._undo:
@@ -1003,11 +1063,46 @@ def check_decode(data, recon) -> str:
     for f, (d, r) in enumerate(zip(dec, recon)):
         for p in range(3):
             rp = np.asarray(r[p])
-            if not np.array_equal(d[p][: rp.shape[0], : rp.shape[1]],
-                                  rp.astype(np.uint8)):
+            if not np.array_equal(d[p][: rp.shape[0], : rp.shape[1]], rp):
                 raise RuntimeError(f"dav1d decode != recon: frame {f} "
                                    f"plane {p}")
     return "decode == recon, all frames and planes"
+
+
+def bottom_lr_units(fes) -> list:
+    """Per frame, the restoring loop-restoration units of the bottom unit
+    row (luma: Wiener or SGR; chroma: where the plane is coded
+    RESTORE_WIENER): where a stripe ends at the plane's last row, their
+    taps below it take the stripe rule of ROADMAP F7."""
+    out = []
+    for fe in fes:
+        units = {0: fe._lr_params}
+        units.update({p: fe._lr_chroma[p] for p in (1, 2)
+                      if fe.lr_types[p] == 2})
+        row = {}
+        for p, u in units.items():
+            last = max((ur for ur, _uc in u), default=-1)
+            row[f"plane{p}"] = sum(1 for (ur, _uc), v in u.items()
+                                   if ur == last and v is not None)
+        out.append(row)
+    return out
+
+
+def save_stream(name: str, data, digests: dict) -> None:
+    """With --save-stream DIR: DIR/<name>.ivf and DIR/<name>_recon.json
+    (the recon digests), for rav1e_tpu_torch/utils/stream_check.py to
+    decode on a machine with libdav1d."""
+    from rav1e_tpu_torch.obu.ivf import write_ivf_frame, write_ivf_header
+
+    if "--save-stream" not in sys.argv:
+        return
+    out = Path(sys.argv[sys.argv.index("--save-stream") + 1])
+    out.mkdir(parents=True, exist_ok=True)
+    with open(out / f"{name}.ivf", "wb") as fh:
+        write_ivf_header(fh, W, H, 30, 1, len(data))
+        for i, pkt in enumerate(data):
+            write_ivf_frame(fh, i, pkt)
+    (out / f"{name}_recon.json").write_text(json.dumps(digests))
 
 
 def rederive_sbs(fes) -> tuple:
@@ -1100,11 +1195,11 @@ def mixed_gop(card: str) -> list:
     print(json.dumps({"mixed_path_launches": counts,
                       "first_encode_s": t_first, "frame_types": types,
                       "serialised_s": dict(secs), "card": card}))
-    # every counter but the speed-5 path's own (phase 9) and the host
-    # inter path's (phase 10)
+    # every counter but the speed-5 path's own (phase 9), the host inter
+    # path's (phase 10) and frame_rd_maps (phase 11)
     missing = [k for k, v in counts.items()
                if v == 0 and k not in ("cfl", "wiener_lr_frame",
-                                       "me_fullpel_frame")]
+                                       "me_fullpel_frame", "frame_rd_maps")]
     if missing:
         raise RuntimeError(f"kernels not launched on the mixed path: "
                            f"{missing}")
@@ -1185,21 +1280,26 @@ def check_speed5_kernels(calls, counts, frames_per_run):
     errs = {}
     for key in ("wiener_lr_frame", "wiener_lr_frame_32"):
         _, a, _k = calls[key]
-        cd, db, taps, stripe, hh, ww = a
-        errs[stripe] = _same(lrf.wiener_filter_frame(*a),
-                             lrf.wiener_filter_plain(cd, db, taps[0], taps[1],
-                                                     stripe, hh, ww),
-                             f"wiener_lr frame mode, stripe {stripe}")
+        errs[a[3]] = _same(lrf.wiener_filter_frame(*a), _wiener_plain(a),
+                           f"wiener_lr frame mode, stripe {a[3]}")
     print(json.dumps({"wiener_lr_frame_parity": errs}))
     _, a, _k = calls["wiener_lr_frame"]
-    cd, db, taps, stripe, hh, ww = a
     entry("wiener_lr_frame", "rav1e_tpu_torch/csrc/wiener_lr.cu",
           "rav1e_tpu/ops/lrf_jax.py:43", max(errs.values()),
           cuda_ms(lambda: lrf.wiener_filter_frame(*a)),
-          cuda_ms(lambda: lrf.wiener_filter_plain(cd, db, taps[0], taps[1],
-                                                  stripe, hh, ww), reps=5),
+          cuda_ms(lambda: _wiener_plain(a), reps=5),
           WORK["wiener_lr_frame"](a, {}))
     return out
+
+
+def _wiener_plain(a):
+    """wiener_filter_plain on the arguments of a wiener_filter_frame call
+    (cd, db, taps, stripe, hh, ww[, bd])."""
+    from rav1e_tpu_torch.ops import lrf
+
+    cd, db, taps, stripe, hh, ww = a[:6]
+    return lrf.wiener_filter_plain(cd, db, taps[0], taps[1], stripe, hh, ww,
+                                   *a[6:])
 
 
 def _search_apply_plain(y, u, v, sy, su, sv, skip, sb_lam, damping):
@@ -1459,27 +1559,14 @@ def default_gop(card: str) -> list:
     import torch
 
     from rav1e_tpu_torch import kernels
-    from rav1e_tpu_torch.models import device_pipeline as dp
     from rav1e_tpu_torch.models import mv_pred as mvp
     from rav1e_tpu_torch.models.inter_frame import InterFrameEncoder
-    from rav1e_tpu_torch.obu.ivf import write_ivf_frame, write_ivf_header
     from rav1e_tpu_torch.utils import recon_check
     from rav1e_tpu_torch.utils.content import make_frames
     from rav1e_tpu_torch.utils.stream_check import recon_digest
 
     frames = make_frames(W, H, DEFAULT_FRAMES)
-    cap = Capture()
-    # every frame_me_map call's card tensors, for the parity check
-    me_calls = []
-    wrapped = dp.me_fullpel
-
-    def record(src, ref, n=32, count="me_fullpel"):
-        mv = wrapped(src, ref, n, count=count)
-        if count == "me_fullpel_frame":
-            me_calls.append((src, ref, mv))
-        return mv
-
-    dp.me_fullpel = record
+    cap = Capture(keep=("me_fullpel",))
     kernels.reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1487,9 +1574,11 @@ def default_gop(card: str) -> list:
         data, recon, _wf = encode(frames, check=True, default=True)
         torch.cuda.synchronize()
     finally:
-        dp.me_fullpel = wrapped
         cap.restore()
     t_first = time.perf_counter() - t0
+    # every frame_me_map call's card tensors, for the parity check
+    me_calls = [(a[0], a[1], mv) for a, k, mv in cap.every.pop("me_fullpel")
+                if k.get("count") == "me_fullpel_frame"]
     counts = dict(kernels.COUNTS)
     fes = encode.all_fes
     inter = [fe for fe in fes if isinstance(fe, InterFrameEncoder)]
@@ -1537,17 +1626,7 @@ def default_gop(card: str) -> list:
         "host_frames_filter_chain_np": DEFAULT_FILTER_FRAMES,
         "recon_sha256": digests},
         "bytes": sum(map(len, data)), "check_s": time.perf_counter() - t1}))
-    if "--save-stream" in sys.argv:
-        # the stream and its recon digests, for a decode on a machine with
-        # libdav1d (python -m rav1e_tpu_torch.utils.stream_check)
-        out = Path(sys.argv[sys.argv.index("--save-stream") + 1])
-        out.mkdir(parents=True, exist_ok=True)
-        with open(out / "default.ivf", "wb") as fh:
-            write_ivf_header(fh, W, H, 30, 1, len(data))
-            for i, pkt in enumerate(data):
-                write_ivf_frame(fh, i, pkt)
-        (out / "default_recon.json").write_text(
-            json.dumps({"recon_sha256": digests}))
+    save_stream("default", data, {"recon_sha256": digests})
 
     t2 = time.perf_counter()
     data2, _, _ = encode(frames, check=False, default=True)
@@ -1560,6 +1639,419 @@ def default_gop(card: str) -> list:
         "frames": DEFAULT_FRAMES, "size": f"{W}x{H}", "seconds": t_enc,
         "fps": DEFAULT_FRAMES / t_enc, "stages_s": encode.stages,
         "card": card}}))
+    return results
+
+
+# phase 11, above 8 bits: every frame is off the wavefront (8-bit only), so
+# the key frame's host walk reads frame_rd_maps (K1, K2's float variant),
+# the inter frames take the host inter path (K10 on uint16 planes), and
+# every frame the host filter path (K5, K6 at bd, K8's frame mode at bd)
+HBD_LAUNCHED = ("intra_pred", "fwd_txq", "cdef_dir", "cdef_filter",
+                "me_fullpel_frame", "wiener_lr_frame", "frame_rd_maps")
+# the wavefront (and its ME and inverse transforms), the chain, CFL
+HBD_IDLE = ("deblock", "wiener_solve", "wiener_lr", "mc_pred", "cfl",
+            "me_fullpel", "fwd_txq_thin", "inv_txfm")
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """rd_analysis through the plain versions of K1 and K2's float
+    variant (the card's frame_rd_maps without its kernels)."""
+    from rav1e_tpu_torch.ops import intra, transforms as tt
+
+    saved = intra.intra_pred, tt.fwd_rd_float
+    intra.intra_pred, tt.fwd_rd_float = (intra.intra_pred_plain,
+                                         tt.fwd_rd_float_plain)
+    try:
+        yield
+    finally:
+        intra.intra_pred, tt.fwd_rd_float = saved
+
+
+def rd_map_ties(got, ref, table_of) -> int:
+    """frame_rd_maps (K1 + K2) against its plain version on the card:
+    modes, nnz and split32 identical except at blocks whose two best plain
+    costs lie within RD_TIE of each other; returns their count (at most
+    FDCT_TIE_SHARE of the blocks)."""
+    import numpy as np
+
+    ties = blocks = 0
+    for n in (32, 16):
+        (m, c, z), (rm, rc, rz) = got[n], ref[n]
+        if not np.allclose(c, rc, rtol=1e-4):
+            raise RuntimeError(f"frame_rd_maps costs differ at n = {n}")
+        table = np.sort(table_of(n), 0)
+        near = table[1] - table[0] <= RD_TIE * table[0]
+        differ = (m != rm) | (z != rz)
+        if (differ & ~near).any():
+            raise RuntimeError(f"frame_rd_maps modes differ away from ties "
+                               f"at n = {n}")
+        ties += int(differ.sum())
+        blocks += m.size
+    c32 = got[32][1]
+    by, bx = c32.shape
+    gap = np.abs(got[16][1].reshape(by, 2, bx, 2).sum((1, 3)) - c32)
+    differ = got["split32"] != ref["split32"]
+    if (differ & (gap > 1e-3 * np.abs(c32))).any():
+        raise RuntimeError("frame_rd_maps split32 differs away from ties")
+    ties += int(differ.sum())
+    if ties > FDCT_TIE_SHARE * blocks:
+        raise RuntimeError(f"frame_rd_maps: {ties} of {blocks} at ties")
+    return ties
+
+
+def check_rd_maps(calls, rd_args, counts):
+    """frame_rd_maps on the key frame's plane: the maps of K1 + K2 against
+    those of their plain versions (rd_map_ties), K1's largest call
+    identical, K2's float variant by its tie rule; each timed beside its
+    bound, K2 beside the torch.matmul forward transform of the same
+    residual batch, and the whole route beside its plain version.
+    Returns (kernels JSON entries, the route's timing)."""
+    import torch
+
+    from rav1e_tpu_torch.models import device_pipeline as dp
+    from rav1e_tpu_torch.ops import intra, transforms as tt
+
+    out = []
+    entry = make_entry(out, counts, HBD_FRAMES)
+    y, dc_q, ac_q, lam = rd_args
+    dev = calls["frame_rd_maps_intra_pred"][1][0].device  # the route's
+    got = dp.frame_rd_maps(y, dc_q, ac_q, lam, device=dev)
+    with plain_kernels():
+        ref = dp.frame_rd_maps(y, dc_q, ac_q, lam, device=dev)
+    yt = torch.as_tensor(y, device=dev)
+    lam_t = torch.tensor(float(lam), dtype=torch.float32)
+
+    def table_of(n):
+        blocks, stack = dp.predict_all(yt, n)
+        Fv, FhT = dp._fwd_mats(n, yt.device)
+        d, r, _z = tt.fwd_rd_float_plain(blocks[None] - stack, Fv, FhT,
+                                         dc_q, ac_q, 1 if n == 32 else 0)
+        return (d * dp.DIST_SCALE[n] + lam_t * (r + 6.0)).cpu().numpy()
+
+    ties = rd_map_ties(got, ref, table_of)
+    _, a, _k = calls["frame_rd_maps_intra_pred"]
+    err = _same(intra.intra_pred(*a), intra.intra_pred_plain(*a),
+                "intra_pred (frame_rd_maps)")
+    entry("frame_rd_maps_intra_pred", "rav1e_tpu_torch/csrc/intra_pred.cu",
+          "rav1e_tpu/models/device_pipeline.py:49", err,
+          cuda_ms(lambda: intra.intra_pred(*a), reps=5),
+          cuda_ms(lambda: intra.intra_pred_plain(*a), reps=3),
+          WORK["frame_rd_maps_intra_pred"](a, {}))
+    _, a, _k = calls["fwd_rd_float"]
+    d1, r1, z1 = tt.fwd_rd_float(*a)
+    d2, r2, z2 = tt.fwd_rd_float_plain(*a)
+    close = (torch.isclose(d1, d2, rtol=1e-3)
+             & torch.isclose(r1, r2, rtol=1e-3) & (z1 == z2))
+    agree = float(close.float().mean())
+    if agree < 1 - FDCT_TIE_SHARE:
+        raise RuntimeError(f"fwd_txq float variant agrees on {agree:.4f}")
+    resid, Fv, FhT = a[:3]
+    xf = resid.float()
+    entry("frame_rd_maps_fwd_txq", "rav1e_tpu_torch/csrc/fwd_txq.cu",
+          "rav1e_tpu/models/device_pipeline.py:156",
+          float((d1 - d2).abs().max()),
+          cuda_ms(lambda: tt.fwd_rd_float(*a), reps=5),
+          cuda_ms(lambda: tt.fwd_rd_float_plain(*a), reps=3),
+          WORK["fwd_rd_float"](a, {}),
+          library_ms=cuda_ms(lambda: torch.matmul(
+              Fv, torch.matmul(xf, FhT)), reps=5))
+
+    def plain_route():
+        with plain_kernels():
+            dp.frame_rd_maps(y, dc_q, ac_q, lam, device=dev)
+
+    route = {"ms": cuda_ms(lambda: dp.frame_rd_maps(y, dc_q, ac_q, lam,
+                                                    device=dev), reps=3),
+             "plain_ms": cuda_ms(plain_route, reps=2),
+             "blocks_at_ties": ties, "fwd_float_agree": agree,
+             "size": list(y.shape)}
+    return out, route
+
+
+def check_hbd_calls(every, counts, bd):
+    """Every K5, K6 (search and apply), K8 frame-mode and K10 call of the
+    path (`every`, Capture.every) identical to its plain version on the same
+    card tensors, each at bd; the largest of each timed beside its plain
+    version and its bound.  Returns the kernels JSON entries."""
+    import torch
+
+    from rav1e_tpu_torch.models import device_pipeline as dp
+    from rav1e_tpu_torch.ops import cdef, lrf
+
+    out = []
+    entry = make_entry(out, counts, HBD_FRAMES)
+    n = {}
+    for a, k, o in every["cdef_dir"]:
+        if a[1] != bd:
+            raise RuntimeError(f"cdef_dir ran at {a[1]} bits")
+        _same(o, cdef.cdef_dir_plain(*a), f"cdef_dir at {bd} bits")
+    for a, k, o in every["cdef_filter"]:
+        if a[12] != bd:
+            raise RuntimeError(f"cdef_filter ran at {a[12]} bits")
+        _same(o, cdef.cdef_filter_plain(*a),
+              f"cdef_filter at {bd} bits, mode {a[10]}")
+    for a, k, o in every["wiener_filter_frame"]:
+        if a[6] != bd:
+            raise RuntimeError(f"wiener_lr frame mode ran at {a[6]} bits")
+        _same(o, _wiener_plain(a), f"wiener_lr frame mode at {bd} bits")
+    me = [(a, o) for a, k, o in every["me_fullpel"]
+          if k.get("count") == "me_fullpel_frame"]
+    for a, o in me:
+        if a[0].dtype != torch.uint16:
+            raise RuntimeError("frame_me_map did not search uint16 planes")
+        _same(o, dp.me_fullpel_plain(a[0], a[1], 32),
+              "me_fullpel (frame_me_map, uint16)")
+    for key in every:
+        n[key] = len(every[key])
+    print(json.dumps({"hbd_calls_identical": n}))
+    big = lambda key: max(every[key], key=lambda c: c[0][0].numel())[0]
+    d = big("cdef_dir")
+    entry("cdef_dir_hbd", "rav1e_tpu_torch/csrc/cdef_dir.cu",
+          "rav1e_tpu/ops/cdef_jax.py:43", 0,
+          cuda_ms(lambda: cdef.cdef_dir(*d)),
+          cuda_ms(lambda: cdef.cdef_dir_plain(*d), reps=5),
+          WORK["cdef_dir"](d, {}))
+    # the search and the apply of the largest frame (the apply alone on
+    # cdef_frame_device's route, under 640x480)
+    k6 = [max((c[0] for c in every["cdef_filter"] if c[0][10] == mode),
+              key=lambda a: a[0].numel())
+          for mode in (cdef.SEARCH, cdef.APPLY)
+          if any(c[0][10] == mode for c in every["cdef_filter"])]
+    work = [WORK["cdef_filter"](a, {}) for a in k6]
+    entry("cdef_filter_hbd", "rav1e_tpu_torch/csrc/cdef_filter.cu",
+          "rav1e_tpu/ops/cdef_jax.py:234", 0,
+          sum(cuda_ms(lambda a=a: cdef.cdef_filter(*a)) for a in k6),
+          sum(cuda_ms(lambda a=a: cdef.cdef_filter_plain(*a), reps=3)
+              for a in k6),
+          (sum(w_[0] for w_ in work), sum(w_[1] for w_ in work)))
+    w_a = big("wiener_filter_frame")
+    entry("wiener_lr_frame_hbd", "rav1e_tpu_torch/csrc/wiener_lr.cu",
+          "rav1e_tpu/ops/lrf_jax.py:43", 0,
+          cuda_ms(lambda: lrf.wiener_filter_frame(*w_a)),
+          cuda_ms(lambda: _wiener_plain(w_a), reps=5),
+          WORK["wiener_lr_frame"](w_a, {}))
+    s_, r_ = max(me, key=lambda c: c[0][0].numel())[0][:2]
+    entry("me_fullpel_frame_hbd", "rav1e_tpu_torch/csrc/me_fullpel.cu",
+          "rav1e_tpu/models/device_pipeline.py:339", 0,
+          cuda_ms(lambda: dp.me_fullpel(s_, r_, 32)),
+          cuda_ms(lambda: dp.me_fullpel_plain(s_, r_, 32), reps=3),
+          WORK["me_fullpel_frame"]((s_, r_), {}))
+    return out
+
+
+def check_12bit_kernels(device: str = "cuda") -> dict:
+    """K5, K6 (search and apply), K8's frame mode (stripes 64 and 32) and
+    K10 on seeded 1920x1088 12-bit planes with maximum-contrast blocks
+    (0 and 4095 side by side: a superblock's SSE beyond 2^31), each
+    identical to its plain version.  Returns what was checked."""
+    import numpy as np
+    import torch
+
+    from rav1e_tpu_torch.models import device_pipeline as dp
+    from rav1e_tpu_torch.ops import cdef, lrf
+
+    bd, mx, h, w = 12, 4095, 1088, 1920
+    rng = np.random.default_rng(12)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32),
+                                  device=device)
+
+    def plane(hh, ww):
+        src = rng.integers(0, mx + 1, (hh, ww))
+        src = (src + np.roll(src, 1, 0) + np.roll(src, 1, 1)) // 3
+        rec = np.clip(src + rng.integers(-200, 201, src.shape), 0, mx)
+        cb = (np.arange(hh)[:, None] // 8 + np.arange(ww) // 8) % 2
+        rec[: hh // 4] = cb[: hh // 4] * mx  # maximum contrast
+        src[: hh // 4] = mx - rec[: hh // 4]
+        return t(src), t(rec)
+
+    (sy, y), (su, u), (sv, v) = (plane(h, w), plane(h // 2, w // 2),
+                                 plane(h // 2, w // 2))
+    dirs, var = cdef.cdef_dir(y, bd)
+    _same((dirs, var), cdef.cdef_dir_plain(y, bd), "cdef_dir at 12 bits")
+    act = t(rng.random((h // 8, w // 8)) < 0.9).to(torch.bool)
+    args = (y, u, v, sy, su, sv, dirs, var, act, 4 + bd - 8)
+    sse = cdef.cdef_filter(*args, cdef.SEARCH, None, bd)
+    _same(sse, cdef.cdef_filter_plain(*args, cdef.SEARCH, None, bd),
+          "cdef_filter search at 12 bits")
+    if int(sse.max()) < 2 ** 31:
+        raise RuntimeError("the 12-bit planes did not reach 2^31 SSE")
+    idx = t(rng.integers(0, 8, (h // 64, w // 64)))
+    got = cdef.cdef_filter(*args, cdef.APPLY, idx, bd)
+    _same(got, cdef.cdef_filter_plain(*args, cdef.APPLY, idx, bd),
+          "cdef_filter apply at 12 bits")
+    taps = {64: t([[3, -7, 15], [-2, 5, 12]]), 32: t([[0, -7, 15],
+                                                      [0, 5, 12]])}
+    for stripe, (cd, db) in ((64, (got[0], y)), (32, (got[1], u))):
+        hh, ww = cd.shape
+        a = (cd, db, taps[stripe], stripe, hh, ww, bd)
+        out = lrf.wiener_filter_frame(*a)
+        _same(out, _wiener_plain(a), f"wiener_lr frame mode at 12 bits, "
+              f"stripe {stripe}")
+        if int(out.max()) != mx:
+            raise RuntimeError("the 12-bit Wiener output never clipped")
+    s16 = sy.to(torch.uint16)
+    r16 = torch.roll(sy, (3, -6), (0, 1)).to(torch.uint16)
+    mv = dp.me_fullpel(s16, r16, 32, count="me_fullpel_frame")
+    _same(mv, dp.me_fullpel_plain(s16, r16, 32), "me_fullpel at 12 bits")
+    return {"size": [h, w], "bd": bd, "sse_max": int(sse.max()),
+            "identical": ["cdef_dir", "cdef_filter search", "cdef_filter "
+                          "apply", "wiener_lr frame 64", "wiener_lr frame 32",
+                          "me_fullpel uint16"]}
+
+
+def small_hbd_encodes() -> dict:
+    """A 320x240 12-bit 1 key + 1 inter encode (the key frame on
+    frame_rd_maps, CDEF by the sampled search and cdef_frame_device) and
+    a 320x240 8-bit lossless key frame (frame_rd_maps at q 0, no loop
+    filter), the latter through FrameEncoder since the Context refuses
+    quantizer 0 (ROADMAP F6): their paths, launches and recon digests."""
+    from rav1e_tpu_torch import Config, EncoderConfig, kernels
+    from rav1e_tpu_torch.models.pipeline import FrameEncoder
+    from rav1e_tpu_torch.utils.content import make_frames
+    from rav1e_tpu_torch.utils.stream_check import recon_digest
+
+    def lossless():
+        enc = EncoderConfig(width=320, height=240, quantizer=0,
+                            rdo_lookahead_frames=8)
+        try:
+            Config(enc=enc).new_context()
+        except NotImplementedError:
+            pass
+        else:
+            raise RuntimeError("the Context took quantizer 0 (F6)")
+        fe = FrameEncoder(enc)
+        data = fe.encode_key_frame(make_frames(320, 240, 1)[0])
+        return [data], [fe.last_recon]
+
+    out = {}
+    for name, bd, nf in (("12bit_320x240", 12, 2),
+                         ("lossless_320x240", 8, 1)):
+        kernels.reset_counts()
+        cap = Capture()
+        try:
+            if bd > 8:
+                data, recon, _wf = encode(
+                    make_frames(320, 240, nf, bit_depth=bd), check=False,
+                    default=True, size=(320, 240), bit_depth=bd)
+            else:
+                data, recon = lossless()
+        finally:
+            cap.restore()
+        counts = {k: v for k, v in kernels.COUNTS.items() if v}
+        if counts.get("frame_rd_maps") != 1:
+            raise RuntimeError(f"{name}: the key frame did not take "
+                               "frame_rd_maps")
+        if bd > 8 and not counts.get("cdef_filter"):
+            raise RuntimeError(f"{name}: cdef_frame_device did not run")
+        out[name] = {"launches": counts, "bytes": sum(map(len, data)),
+                     "recon_sha256": [recon_digest(r, bd) for r in recon]}
+        if bd > 8:  # the small-frame CDEF route at 12 bits, timed
+            out[name]["cdef_frame_route"] = time_cdef_frame(cap.calls)
+    return out
+
+
+def hbd_gop(card: str) -> list:
+    """The path above 8 bits (phase 11 of the module docstring).  Returns
+    the kernels JSON entries of its routes."""
+    import torch
+
+    from rav1e_tpu_torch import kernels
+    from rav1e_tpu_torch.models.inter_frame import InterFrameEncoder
+    from rav1e_tpu_torch.utils import recon_check
+    from rav1e_tpu_torch.utils.content import make_frames
+    from rav1e_tpu_torch.utils.stream_check import recon_digest
+
+    frames = make_frames(W, H, HBD_FRAMES, bit_depth=HBD_BD)
+    cap = Capture(keep=("cdef_dir", "cdef_filter", "wiener_filter_frame",
+                        "me_fullpel", "frame_rd_maps"))
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        data, recon, wf = encode(frames, check=True, default=True,
+                                 bit_depth=HBD_BD)
+        torch.cuda.synchronize()
+    finally:
+        cap.restore()
+    t_first = time.perf_counter() - t0
+    counts = dict(kernels.COUNTS)
+    fes = encode.all_fes
+    inter = [fe for fe in fes if isinstance(fe, InterFrameEncoder)]
+    paths = [dict(frame_path(fe),
+                  cdef_strengths=list(fe.cdef_strengths or ()),
+                  cdef_per_sb=fe.cdef_sb is not None) for fe in inter]
+    print(json.dumps({"hbd_path_launches": counts, "first_encode_s": t_first,
+                      "packets": encode.frame_types,
+                      "key_frame": {"cdef_strengths":
+                                    list(fes[0].cdef_strengths or ()),
+                                    "lr_types": [int(x) for x in
+                                                 fes[0].lr_types]},
+                      "frames": paths, "stages_s": encode.stages,
+                      "card": card}))
+    if wf or len(fes) != HBD_FRAMES or len(inter) != HBD_FRAMES - 1:
+        raise RuntimeError(f"{len(wf)} wavefront frames, {len(fes)} coded "
+                           f"of {HBD_FRAMES}")
+    if len(cap.every["frame_rd_maps"]) != 1 or \
+            fes[0]._rd_maps is None or counts["frame_rd_maps"] != 1:
+        raise RuntimeError("the key frame did not take frame_rd_maps")
+    if counts["intra_pred"] != 2 or counts["fwd_txq"] != 2:
+        raise RuntimeError("frame_rd_maps did not launch K1 and K2 twice")
+    if not any(fe.reference_select and fe.comp_block_count for fe in inter):
+        raise RuntimeError("no host frame coded compound blocks")
+    want = sum(len(fe.ref_ids) for fe in inter)
+    if counts["me_fullpel_frame"] != want:
+        raise RuntimeError(f"K10 ran {counts['me_fullpel_frame']} times "
+                           f"for {want} references")
+    if len([c for c in cap.every["cdef_dir"] if c[0][1] == HBD_BD]) \
+            != HBD_FRAMES:
+        raise RuntimeError("CDEF did not run at 10 bits on every frame")
+    missing = [k for k in HBD_LAUNCHED if counts[k] == 0]
+    busy = [k for k in HBD_IDLE if counts[k]]
+    if missing or busy:
+        raise RuntimeError(f"phase 11 kernels not launched: {missing}, "
+                           f"launched off the path: {busy}")
+    print(json.dumps({"hbd_bound_ms_per_frame": {
+        k: v / HBD_FRAMES for k, v in cap.bounds.items()}, "card": card}))
+    key = fes[0]
+    names = {"frame_rd_maps_intra_pred": counts["intra_pred"],
+             "frame_rd_maps_fwd_txq": counts["fwd_txq"],
+             "cdef_dir_hbd": counts["cdef_dir"],
+             "cdef_filter_hbd": counts["cdef_filter"],
+             "wiener_lr_frame_hbd": counts["wiener_lr_frame"],
+             "me_fullpel_frame_hbd": counts["me_fullpel_frame"]}
+    results, route = check_rd_maps(cap.calls, (key.src[0], key.dc_q,
+                                               key.ac_q, key.lam), names)
+    route["bound_ms"] = cap.bounds.get("rd_maps", 0.0)
+    print(json.dumps({"frame_rd_maps_route": route, "card": card}))
+    results += check_hbd_calls(cap.every, names, HBD_BD)
+    cap.every.clear()
+    print(json.dumps({"hbd_12bit_kernels": check_12bit_kernels()}))
+    print(json.dumps({"hbd_small_encodes": small_hbd_encodes()}))
+
+    t1 = time.perf_counter()
+    for fe in fes[:HBD_FILTER_FRAMES]:
+        if not recon_check.filters_match(fe, fe._chk_prefilter, fe._chk_out):
+            raise RuntimeError("a 10-bit frame's numpy filter chain over its "
+                               "pre-filter frame differs from the output")
+    digests = [recon_digest(r, HBD_BD) for r in recon]
+    print(json.dumps({"hbd_output": {
+        "dav1d": check_decode(data, recon),
+        "frames_filter_chain_np": HBD_FILTER_FRAMES,
+        "recon_sha256": digests},
+        "bytes": sum(map(len, data)), "check_s": time.perf_counter() - t1}))
+    save_stream("hbd", data, {"recon_sha256": digests, "bit_depth": HBD_BD})
+
+    t2 = time.perf_counter()
+    data2, _, _ = encode(frames, check=False, default=True, bit_depth=HBD_BD)
+    torch.cuda.synchronize()
+    t_enc = time.perf_counter() - t2
+    if data2 != data:
+        raise RuntimeError("the second 10-bit encode wrote other bytes")
+    print(json.dumps({"hbd_encode": {
+        "frames": HBD_FRAMES, "size": f"{W}x{H}", "bit_depth": HBD_BD,
+        "seconds": t_enc, "fps": HBD_FRAMES / t_enc,
+        "stages_s": encode.stages, "card": card}}))
     return results
 
 
@@ -1632,8 +2124,14 @@ def main() -> int:
     results = check_kernels(cap.calls, counts, NFRAMES)
     t3 = time.perf_counter()
     summary = check_output(data, recon, fes, FILTER_FRAMES)
+    from rav1e_tpu_torch.utils.stream_check import recon_digest
+
+    digests = [recon_digest(r) for r in recon]
     print(json.dumps({"output": summary, "bytes": sum(map(len, data)),
-                      "check_s": time.perf_counter() - t3}))
+                      "check_s": time.perf_counter() - t3,
+                      "bottom_lr_units": bottom_lr_units(fes),
+                      "recon_sha256": digests}))
+    save_stream("key", data, {"recon_sha256": digests})
 
     # the keyframe path with CDEF and loop restoration off
     kernels.reset_counts()
@@ -1667,6 +2165,7 @@ def main() -> int:
     results += mixed_gop(card)
     results += speed5(card)
     results += default_gop(card)
+    results += hbd_gop(card)
     print(json.dumps({"parity": {r["name"]: r["max_abs_err"]
                                  for r in results}}))
     if any(m == "jax" or m.startswith("jax.") or m == "rav1e_tpu"

@@ -17,14 +17,23 @@ Ported so far: low-latency encodes (key frames, P frames from LAST) at the
 speed-6 defaults (CDEF search and apply, fused Wiener loop restoration),
 with either filter off, and at speed 5 (CFL in the wavefront pass, the
 host deblock level search, the CDEF search outside the device chain, the
-SGR and per-unit Wiener loop-restoration search).  What raises
-NotImplementedError names its ROADMAP queue 1 item: the host inter paths
-of the default configuration (low_latency=False: pyramid,
-multi-reference and compound frames) and of frames outside the inter
-wavefront, intra frames of 320x240 and up outside the wavefront
-(frame_rd_maps), the loop-restoration decision outside the chain
-(lr_decide_device) and 8x8 wavefront leaves (speed <= 3): item 10;
-tile-sharded and multi-GPU encodes: item 11.
+SGR and per-unit Wiener loop-restoration search); the default
+configuration (low_latency=False: pyramid, multi-reference and compound
+frames on the host inter path, its ME maps on the card); 4:2:0 frames of
+10 and 12 bits (the host walk over frame_rd_maps, the host inter path on
+16-bit planes, CDEF and the Wiener trial filter at the frame's bit
+depth).  Lossless coding (quantizer 0) raises NotImplementedError at the
+Context: its key frames would lack the 4x4 Walsh-Hadamard transform, as
+the JAX package's do, and not decode to the recon (ROADMAP fault F6);
+FrameEncoder still codes them as the JAX package does, for the parity
+tests.  4:2:2 and 4:4:4 frames encode
+through the same host paths (without CDEF, as in the JAX package) but
+are not yet held against it (ROADMAP queue 1 item 10b).  What raises
+NotImplementedError names its ROADMAP queue 1 item: 8x8 wavefront leaves
+(speed <= 3) and segmentation on inter wavefront frames: item 10; the
+loop-restoration decision from the device planes of a chain without its
+LR stage (lr_decide_device): item 10; tile-sharded and multi-GPU encodes
+(parallel/): item 11.
 
 Layout:
   api/      Config / Context / EncoderStatus public API

@@ -58,6 +58,14 @@ class Context:
 
     def __init__(self, enc: EncoderConfig, threads: int = 0,
                  device="cuda"):
+        if enc.quantizer == 0 and not enc.bitrate and enc.rc_stats is None:
+            # constant quantizer 0 codes every key frame lossless (rate
+            # control never picks q 0)
+            raise NotImplementedError(
+                "lossless coding (quantizer 0): the 4x4 Walsh-Hadamard "
+                "transform a lossless frame is decoded with is not coded "
+                "yet, so its stream would not decode to the recon "
+                "(ROADMAP fault F6)")
         self.enc = enc
         self.threads = threads
         self.device = device

@@ -14,10 +14,16 @@
 // its pixel's own direction.
 //
 // mode 0 (search): for each of the 8 luma and 3 chroma candidates, the
-//   superblock's exact integer SSE against the source (a block reduction;
-//   4096 * 255^2 < 2^31), written to sse[c][sb].
+//   superblock's exact integer SSE against the source (a block reduction
+//   in int64: a 10-bit luma superblock reaches 4096 * 1023^2 > 2^31),
+//   written to sse[c][sb].
 // mode 1 (apply): the candidate pair idx_map[sb] picked (luma candidate
 //   idx, chroma candidate PAIR_UV_IDX[idx]), written to the output planes.
+//
+// Above 8 bits (scale = bd - 8 > 0; cdef_jax.py:238-311) every candidate
+// strength is shifted left by scale before the variance adjustment, the
+// primary taps' weights follow the parity of the strength >> scale, and
+// the caller passes the damping already grown by scale.
 //
 // floor(log2) of a strength or of var >> 6 is 31 - __clz(x) (the JAX
 // version goes through a float log2).  Bound on the H100: integer
@@ -61,12 +67,12 @@ __device__ __forceinline__ int adjust(int s, int var) {
 // One filtered sample.  t: the tile, ts: its row stride, c: the centre's
 // offset in it.  pri/sec: the (adjusted) strengths, both > 0 or not used.
 __device__ int filter_px(const int *t, int ts, int c, int pri, int sec,
-                         int damping, int dir) {
+                         int damping, int dir, int scale) {
     const int x = t[c];
     int sum = 0, mx = x, mn = x;
     if (pri > 0) {
         const int shift = max(0, damping - ilog2(pri));
-        const int odd = pri & 1;
+        const int odd = (pri >> scale) & 1;
 #pragma unroll
         for (int k = 0; k < 2; k++) {
             const int tw = odd ? 3 : (k == 0 ? 4 : 2);
@@ -111,9 +117,9 @@ __device__ int filter_px(const int *t, int ts, int c, int pri, int sec,
 // active and a strength is nonzero, else the input.
 __device__ __forceinline__ int cand_px(const int *t, int ts, int c, int pri,
                                        int sec, int damping, int dir,
-                                       bool act) {
+                                       bool act, int scale) {
     if (!act || (pri <= 0 && sec <= 0)) return t[c];
-    return filter_px(t, ts, c, pri, sec, damping, dir);
+    return filter_px(t, ts, c, pri, sec, damping, dir, scale);
 }
 
 __device__ void load_tile(int *tile, int tn, const int32_t *__restrict__ img,
@@ -126,7 +132,7 @@ __device__ void load_tile(int *tile, int tn, const int32_t *__restrict__ img,
     }
 }
 
-__device__ __forceinline__ int warp_sum(int v) {
+__device__ __forceinline__ long long warp_sum(long long v) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
     return v;
@@ -143,15 +149,15 @@ cdef_filter_kernel(const int32_t *__restrict__ y, const int32_t *__restrict__ u,
                    int w, const int32_t *__restrict__ dirs,
                    const int32_t *__restrict__ var,
                    const uint8_t *__restrict__ active, int nbx, int damping,
-                   int mode, const int32_t *__restrict__ idx_map,
-                   int32_t *__restrict__ sse, int32_t *__restrict__ yo,
+                   int scale, int mode, const int32_t *__restrict__ idx_map,
+                   int64_t *__restrict__ sse, int32_t *__restrict__ yo,
                    int32_t *__restrict__ uo, int32_t *__restrict__ vo) {
     __shared__ int ty[TY * TY];
     __shared__ int tu[TC * TC];
     __shared__ int tv[TC * TC];
     __shared__ int bdir[64], bvar[64];
     __shared__ unsigned char bact[64];
-    __shared__ int red[NT / 32][11];
+    __shared__ long long red[NT / 32][11];
 
     const int nsbx = gridDim.x;
     const int sbr = blockIdx.y, sbc = blockIdx.x;
@@ -174,7 +180,8 @@ cdef_filter_kernel(const int32_t *__restrict__ y, const int32_t *__restrict__ u,
 
     if (mode == 1) {
         const int ci = idx_map[sb];
-        const int ypri = kYPri[ci], ysec = kYSec[ci], uvpri = kUVPri[kPairUV[ci]];
+        const int ypri = kYPri[ci] << scale, ysec = kYSec[ci] << scale;
+        const int uvpri = kUVPri[kPairUV[ci]] << scale;
         for (int i = threadIdx.x; i < 4096; i += NT) {
             const int ly = i >> 6, lx = i & 63;
             const int gy = sbr * 64 + ly, gx = sbc * 64 + lx;
@@ -183,7 +190,7 @@ cdef_filter_kernel(const int32_t *__restrict__ y, const int32_t *__restrict__ u,
             const int pa = adjust(ypri, bvar[b]);
             yo[(size_t)gy * w + gx] =
                 cand_px(ty, TY, (ly + 3) * TY + lx + 3, pa, ysec, damping,
-                        ypri ? bdir[b] : 0, bact[b]);
+                        ypri ? bdir[b] : 0, bact[b], scale);
         }
         for (int i = threadIdx.x; i < 2048; i += NT) {
             const int pl = i >> 10, j = i & 1023;
@@ -193,13 +200,13 @@ cdef_filter_kernel(const int32_t *__restrict__ y, const int32_t *__restrict__ u,
             const int b = (ly >> 2) * 8 + (lx >> 2);
             const int out = cand_px(pl ? tv : tu, TC, (ly + 3) * TC + lx + 3,
                                     uvpri, 0, damping - 1,
-                                    uvpri ? bdir[b] : 0, bact[b]);
+                                    uvpri ? bdir[b] : 0, bact[b], scale);
             (pl ? vo : uo)[(size_t)gy * cw + gx] = out;
         }
         return;
     }
 
-    int acc[11];
+    long long acc[11];
 #pragma unroll
     for (int c = 0; c < 11; c++) acc[c] = 0;
     for (int i = threadIdx.x; i < 4096; i += NT) {
@@ -211,9 +218,10 @@ cdef_filter_kernel(const int32_t *__restrict__ y, const int32_t *__restrict__ u,
         const int c0 = (ly + 3) * TY + lx + 3;
 #pragma unroll
         for (int c = 0; c < 8; c++) {
-            const int e = cand_px(ty, TY, c0, adjust(kYPri[c], bvar[b]), kYSec[c],
-                                  damping, kYPri[c] ? bdir[b] : 0, bact[b]) - s;
-            acc[c] += e * e;
+            const int e = cand_px(ty, TY, c0, adjust(kYPri[c] << scale, bvar[b]),
+                                  kYSec[c] << scale, damping,
+                                  kYPri[c] ? bdir[b] : 0, bact[b], scale) - s;
+            acc[c] += (long long)(e * e);
         }
     }
     for (int i = threadIdx.x; i < 2048; i += NT) {
@@ -226,20 +234,21 @@ cdef_filter_kernel(const int32_t *__restrict__ y, const int32_t *__restrict__ u,
         const int c0 = (ly + 3) * TC + lx + 3;
 #pragma unroll
         for (int c = 0; c < 3; c++) {
-            const int e = cand_px(pl ? tv : tu, TC, c0, kUVPri[c], 0, damping - 1,
-                                  kUVPri[c] ? bdir[b] : 0, bact[b]) - s;
-            acc[8 + c] += e * e;
+            const int e = cand_px(pl ? tv : tu, TC, c0, kUVPri[c] << scale, 0,
+                                  damping - 1, kUVPri[c] ? bdir[b] : 0,
+                                  bact[b], scale) - s;
+            acc[8 + c] += (long long)(e * e);
         }
     }
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
     for (int c = 0; c < 11; c++) {
-        const int r = warp_sum(acc[c]);
+        const long long r = warp_sum(acc[c]);
         if (lane == 0) red[warp][c] = r;
     }
     __syncthreads();
     if (threadIdx.x < 11) {
-        int tot = 0;
+        long long tot = 0;
         for (int k = 0; k < NT / 32; k++) tot += red[k][threadIdx.x];
         sse[(size_t)threadIdx.x * gridDim.x * gridDim.y + sb] = tot;
     }
@@ -251,7 +260,8 @@ extern "C" int cdef_filter(const void *y, const void *u, const void *v,
                            int sy, int sc, const void *srcy, const void *srcu,
                            const void *srcv, int ssy, int ssc, int h, int w,
                            const void *dirs, const void *var,
-                           const void *active, int nbx, int damping, int mode,
+                           const void *active, int nbx, int damping,
+                           int scale, int mode,
                            const void *idx_map, void *sse, void *yo, void *uo,
                            void *vo, void *stream) {
     const int nsby = (h + 63) / 64, nsbx = (w + 63) / 64;
@@ -260,8 +270,8 @@ extern "C" int cdef_filter(const void *y, const void *u, const void *v,
             (const int32_t *)y, (const int32_t *)u, (const int32_t *)v, sy, sc,
             (const int32_t *)srcy, (const int32_t *)srcu,
             (const int32_t *)srcv, ssy, ssc, h, w, (const int32_t *)dirs,
-            (const int32_t *)var, (const uint8_t *)active, nbx, damping, mode,
-            (const int32_t *)idx_map, (int32_t *)sse, (int32_t *)yo,
+            (const int32_t *)var, (const uint8_t *)active, nbx, damping, scale,
+            mode, (const int32_t *)idx_map, (int64_t *)sse, (int32_t *)yo,
             (int32_t *)uo, (int32_t *)vo);
     }
     return (int)cudaGetLastError();

@@ -21,9 +21,13 @@
 //   Both argmins keep the FIRST minimum in (dy, dx) raster order, as
 //   jnp.argmin does (strict < while scanning upwards, ties to the lower
 //   index across lanes).
-// int32 is exact: a quarter SAD is at most 64 * 4080 and a full one
-// 1024 * 255.  Bound on the H100: operations (289 * 64 + 25 * 1024
-// absolute differences a block against ~4 KB of input).
+// Both kernels are templated on the sample type: uint8 planes in the
+// inter pass and at 8 bits, uint16 planes for frame_me_map above 8 bits
+// (device_pipeline.py:339 runs the JAX search on int32 planes of any bit
+// depth).  int32 is exact: at 12 bits a quarter SAD is at most
+// 64 * 16 * 4095 and a full one 1024 * 4095.  Bound on the H100:
+// operations (289 * 64 + 25 * 1024 absolute differences a block against
+// ~4 KB of input, ~8 KB at 16 bits).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -37,14 +41,15 @@ constexpr int WQ = 8 + 2 * RADQ;
 constexpr int RAD2 = 2;
 constexpr int WF = 32 + 2 * RAD2;
 
-__global__ void quarter_kernel(const uint8_t *__restrict__ src, int ss,
-                               const uint8_t *__restrict__ ref, int rs,
+template <typename T>
+__global__ void quarter_kernel(const T *__restrict__ src, int ss,
+                               const T *__restrict__ ref, int rs,
                                int hq, int wq, int32_t *__restrict__ out) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= 2 * hq * wq) return;
     const int p = i / (hq * wq), k = i % (hq * wq);
     const int y = k / wq, x = k % wq;
-    const uint8_t *a = p ? ref : src;
+    const T *a = p ? ref : src;
     const int st = p ? rs : ss;
     int32_t acc = 0;
 #pragma unroll
@@ -67,9 +72,10 @@ __device__ __forceinline__ void warp_argmin(int &cost, int &idx) {
     }
 }
 
+template <typename T>
 __global__ void search_kernel(const int32_t *__restrict__ quarter, int hq,
-                              int wq, const uint8_t *__restrict__ src, int ss,
-                              const uint8_t *__restrict__ ref, int rs, int h,
+                              int wq, const T *__restrict__ src, int ss,
+                              const T *__restrict__ ref, int rs, int h,
                               int w, int bxn, int32_t *__restrict__ mv) {
     __shared__ int32_t sq[64];
     __shared__ int32_t rq[WQ * WQ];
@@ -146,23 +152,34 @@ __global__ void search_kernel(const int32_t *__restrict__ quarter, int hq,
     }
 }
 
-}  // namespace
-
-extern "C" int me_fullpel(const void *src, int src_stride, const void *ref,
-                          int ref_stride, int h, int w, void *quarter,
-                          void *mv, void *stream) {
-    cudaStream_t s = (cudaStream_t)stream;
+template <typename T>
+void launch(const void *src, int src_stride, const void *ref, int ref_stride,
+            int h, int w, void *quarter, void *mv, cudaStream_t s) {
     const int hq = h / 4, wq = w / 4;
     const int nq = 2 * hq * wq;
-    if (nq > 0) {
-        quarter_kernel<<<(nq + THREADS - 1) / THREADS, THREADS, 0, s>>>(
-            (const uint8_t *)src, src_stride, (const uint8_t *)ref, ref_stride,
-            hq, wq, (int32_t *)quarter);
-        const int bxn = w / 32, byn = h / 32;
-        search_kernel<<<byn * bxn, THREADS, 0, s>>>(
-            (const int32_t *)quarter, hq, wq, (const uint8_t *)src,
-            src_stride, (const uint8_t *)ref, ref_stride, h, w, bxn,
-            (int32_t *)mv);
+    quarter_kernel<T><<<(nq + THREADS - 1) / THREADS, THREADS, 0, s>>>(
+        (const T *)src, src_stride, (const T *)ref, ref_stride, hq, wq,
+        (int32_t *)quarter);
+    const int bxn = w / 32, byn = h / 32;
+    search_kernel<T><<<byn * bxn, THREADS, 0, s>>>(
+        (const int32_t *)quarter, hq, wq, (const T *)src, src_stride,
+        (const T *)ref, ref_stride, h, w, bxn, (int32_t *)mv);
+}
+
+}  // namespace
+
+// sample_bytes: 1 (uint8 planes) or 2 (uint16); strides in samples
+extern "C" int me_fullpel(const void *src, int src_stride, const void *ref,
+                          int ref_stride, int h, int w, int sample_bytes,
+                          void *quarter, void *mv, void *stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (h >= 4 && w >= 4) {
+        if (sample_bytes == 2)
+            launch<uint16_t>(src, src_stride, ref, ref_stride, h, w, quarter,
+                             mv, s);
+        else
+            launch<uint8_t>(src, src_stride, ref, ref_stride, h, w, quarter,
+                            mv, s);
     }
     return (int)cudaGetLastError();
 }

@@ -11,8 +11,9 @@
 // restoration unit (the stripe-aligned row ranges of lrf_np.unit_ranges,
 // up to ~1.5x the nominal unit).  The unit is taken stripe by stripe: for
 // each virtual row yy in [a - 3, b + 3) of a stripe segment [a, b), the
-// source row comes from _stripe_source's rule (the CDEF output inside the
-// stripe, the deblocked plane across its boundary, two rows at most), the
+// source row comes from _stripe_source's rule (clamped to the plane, then
+// the CDEF output inside the stripe, the deblocked plane across its
+// boundary, two rows at most), the
 // columns are clamped at the plane's edges, and the horizontal pass
 // (round0, clip) goes to shared memory; the vertical pass (round1, clip)
 // reads it back.  In the same CTA the unit's SSE of the CDEF output and of
@@ -24,8 +25,13 @@
 //
 // Frame mode (choice == nullptr; src, en, lam and rate unused): the whole
 // restored plane with the given taps and stripe size, no sums and no
-// choice.  It replaces rav1e_tpu/ops/lrf_jax.py:43 _jitted (called by
-// :254 wiener_filter_frame_device), the host LR search's trial filter.
+// choice, at bit depth bd (8, 10 or 12: the rounding of lrf_jax.py:50-55,
+// round0 = 3 and round1 = 11 below 12 bits, 5 and 9 at 12, the clip to
+// (1 << bd) - 1; every intermediate fits int32).  It replaces
+// rav1e_tpu/ops/lrf_jax.py:43 _jitted (called by :254
+// wiener_filter_frame_device), the host LR search's trial filter.  The
+// unit-choice mode runs only in the chain after an 8-bit wavefront pass,
+// so its SSE bound above is the 8-bit one.
 //
 // Bound on the H100: bytes (the CDEF output and the source read, the
 // deblocked plane only in the rows the stripe rule takes, one plane
@@ -59,7 +65,7 @@ __global__ void __launch_bounds__(NT)
 wiener_lr_kernel(const int32_t *__restrict__ cd, int scd,
                  const int32_t *__restrict__ db, int sdb,
                  const int32_t *__restrict__ src, int ssrc, int hh, int ww,
-                 int unit, const int32_t *__restrict__ taps,
+                 int unit, int bd, const int32_t *__restrict__ taps,
                  const int32_t *__restrict__ en, float lam, float rate,
                  int32_t *__restrict__ out, int32_t *__restrict__ choice) {
     __shared__ int hor[MAXROWS * MAXW];
@@ -82,8 +88,11 @@ wiener_lr_kernel(const int32_t *__restrict__ cd, int scd,
         hf[0] = hf[6] = h0; hf[1] = hf[5] = h1; hf[2] = hf[4] = h2;
         hf[3] = 128 - 2 * (h0 + h1 + h2);
     }
-    // 8-bit: round0 = 3, round1 = 11 (lrf_np.wiener_filter_frame)
-    const int off_h = 1 << 14, limit = (1 << 13) - 1, off_v = 1 << 18;
+    // lrf_np.wiener_filter_frame's rounding (8 bits: 3, 11, 1 << 14,
+    // (1 << 13) - 1, 1 << 18, 255)
+    const int round0 = bd < 12 ? 3 : 5, round1 = bd < 12 ? 11 : 9;
+    const int off_h = 1 << (bd + 6), limit = (1 << (bd + 1 + 7 - round0)) - 1;
+    const int off_v = 1 << (bd + round1 - 1), mx = (1 << bd) - 1;
     const bool frame = choice == nullptr;
     int s0 = 0, s1 = 0;
     for (int a = y0; a < y1;) {
@@ -93,7 +102,9 @@ wiener_lr_kernel(const int32_t *__restrict__ cd, int scd,
         const int nv = b - a + 6;
         for (int i = threadIdx.x; i < nv * uw; i += NT) {
             const int vr = i / uw, xc = i % uw;
-            const int yy = a - 3 + vr;
+            // the row clamped to the plane first, then the stripe test
+            // (spec get_source_sample; lrf_np._stripe_source)
+            const int yy = min(max(a - 3 + vr, 0), hh - 1);
             int rr;
             const int32_t *pl;
             int sp;
@@ -104,14 +115,14 @@ wiener_lr_kernel(const int32_t *__restrict__ cd, int scd,
             } else {
                 rr = yy; pl = cd; sp = scd;
             }
-            rr = min(max(rr, 0), hh - 1);
             const int32_t *row = pl + (size_t)rr * sp;
             const int x = x0 + xc;
             int sum = 0;
 #pragma unroll
             for (int t = 0; t < 7; t++)
                 sum += hf[t] * row[min(max(x + t - 3, 0), ww - 1)];
-            hor[vr * uw + xc] = min(max((sum + off_h + 4) >> 3, 0), limit);
+            hor[vr * uw + xc] = min(
+                max((sum + off_h + (1 << (round0 - 1))) >> round0, 0), limit);
         }
         __syncthreads();
         for (int i = threadIdx.x; i < (b - a) * uw; i += NT) {
@@ -120,7 +131,7 @@ wiener_lr_kernel(const int32_t *__restrict__ cd, int scd,
             int s = -off_v;
 #pragma unroll
             for (int t = 0; t < 7; t++) s += vf[t] * hor[(r + t) * uw + xc];
-            const int rest = min(max((s + (1 << 10)) >> 11, 0), 255);
+            const int rest = min(max((s + (1 << (round1 - 1))) >> round1, 0), mx);
             out[(size_t)y * ww + x] = rest;
             if (frame) continue;
             const int sv = src[(size_t)y * ssrc + x];
@@ -164,13 +175,13 @@ wiener_lr_kernel(const int32_t *__restrict__ cd, int scd,
 
 extern "C" int wiener_lr(const void *cd, int scd, const void *db, int sdb,
                          const void *src, int ssrc, int hh, int ww, int unit,
-                         const void *taps, const void *en, float lam,
+                         int bd, const void *taps, const void *en, float lam,
                          float rate, void *out, void *choice, void *stream) {
     const int nr = count_units(unit, hh), nc = count_units(unit, ww);
     if (hh > 0 && ww > 0) {
         wiener_lr_kernel<<<dim3(nc, nr), NT, 0, (cudaStream_t)stream>>>(
             (const int32_t *)cd, scd, (const int32_t *)db, sdb,
-            (const int32_t *)src, ssrc, hh, ww, unit, (const int32_t *)taps,
+            (const int32_t *)src, ssrc, hh, ww, unit, bd, (const int32_t *)taps,
             (const int32_t *)en, lam, rate, (int32_t *)out, (int32_t *)choice);
     }
     return (int)cudaGetLastError();

@@ -34,9 +34,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # level-1 thinning of the inter race, "wiener_lr_frame" for wiener_lr's
 # launches in frame mode (the whole restored plane, no unit choice) and
 # "me_fullpel_frame" for me_fullpel's launches from the host inter path's
-# frame_me_map
+# frame_me_map; "frame_rd_maps" counts that route's calls on the card
+# (each launches intra_pred and fwd_txq twice, at n = 32 and 16)
 COUNTS = {k: 0 for k in KERNELS + ("fwd_txq_thin", "wiener_lr_frame",
-                                   "me_fullpel_frame")}
+                                   "me_fullpel_frame", "frame_rd_maps")}
 # nvcc's output of the last build of each kernel (ptxas: registers, spills)
 BUILD_LOGS: dict = {}
 _LIBS: dict = {}
@@ -53,15 +54,15 @@ ARGTYPES = {
                      _ci, _ci, _ci, _ci, _ci, _ci, _vp],
     "cdef_dir": [_vp, _ci, _ci, _ci, _ci, _vp, _vp, _vp],
     "cdef_filter": [_vp, _vp, _vp, _ci, _ci, _vp, _vp, _vp, _ci, _ci, _ci,
-                    _ci, _vp, _vp, _vp, _ci, _ci, _ci, _vp, _vp, _vp, _vp,
-                    _vp, _vp],
+                    _ci, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _vp, _vp, _vp,
+                    _vp, _vp, _vp],
     "wiener_solve": [_vp, _vp, _ci, _ci, _ci, _ci] * 3 + [_ci, _vp, _vp, _vp,
                                                           _vp],
-    "wiener_lr": [_vp, _ci, _vp, _ci, _vp, _ci, _ci, _ci, _ci, _vp, _vp, _cf,
-                  _cf, _vp, _vp, _vp],
+    "wiener_lr": [_vp, _ci, _vp, _ci, _vp, _ci, _ci, _ci, _ci, _ci, _vp, _vp,
+                  _cf, _cf, _vp, _vp, _vp],
     "mc_pred": [_vp, _ci, _ci, _ci, _ci, _vp, _vp, _vp, _vp, _ci, _ci, _ci,
                 _ci, _ci, _vp, _vp, _vp],
-    "me_fullpel": [_vp, _ci, _vp, _ci, _ci, _ci, _vp, _vp, _vp],
+    "me_fullpel": [_vp, _ci, _vp, _ci, _ci, _ci, _ci, _vp, _vp, _vp],
     "cfl": [_vp, _ci, _ci, _vp, _vp, _ci, _vp, _vp, _vp, _vp],
 }
 _ENTRY = {"intra_pred": "intra_pred", "fwd_txq": "fwd_txq",

@@ -15,12 +15,15 @@ is predicted by intra_pred (K1) and costed through the float-floor variant
 of fwd_txq (K2): fp32 transform, deadzone quantiser, tx-domain distortion
 and the level-magnitude rate model.
 
-The same search serves the host inter path of the frames outside the inter
-wavefront (frame_me_map: one map a reference, over the edge-padded
-reference plane).
+The same maps over a whole luma plane (frame_rd_maps) steer the host walk
+of the intra frames outside the wavefront: lossless frames and frames
+above 8 bits.  The same search serves the host inter path of the frames
+outside the inter wavefront (frame_me_map: one map a reference, over the
+edge-padded reference plane, uint8 or uint16 samples).
 
-The whole-frame RD maps, mode maps and the sharded analysis steps of the
-JAX module are not ported yet (ROADMAP queue 1, item 10).
+The SAD mode maps (mode_analysis, frame_mode_maps) and the sharded
+analysis steps of the JAX module have no caller on any path and are not
+ported (ROADMAP queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -97,16 +100,23 @@ def rd_analysis(y: torch.Tensor, n: int, q: tuple, lam: float):
     return mode_ids[best], cost, nnz
 
 
+def rd_maps(y: torch.Tensor, q: tuple, lam: torch.Tensor) -> tuple:
+    """rd_analysis at n = 32 and 16 and the 32 -> 16 split decision:
+    ((mode, cost, nnz) at 32, the same at 16, split (by, bx) bool).
+    lam: a float32 scalar tensor."""
+    m32 = rd_analysis(y, 32, q, lam)
+    m16 = rd_analysis(y, 16, q, lam)
+    by, bx = m32[1].shape
+    c16sum = m16[1].reshape(by, 2, bx, 2).sum(dim=(1, 3))
+    return m32, m16, c16sum + lam * 6.0 < m32[1]
+
+
 def band_maps_packed(y: torch.Tensor, q: tuple, lam: float) -> torch.Tensor:
     """Mode maps for 32/16 blocks plus the 32 -> 16 split decision, packed
     into one int32 vector."""
-    lam = torch.tensor(lam, dtype=torch.float32)
-    m32, c32, _ = rd_analysis(y, 32, q, lam)
-    m16, c16, _ = rd_analysis(y, 16, q, lam)
-    by, bx = c32.shape
-    c16sum = c16.reshape(by, 2, bx, 2).sum(dim=(1, 3))
-    split = (c16sum + lam * 6.0 < c32).to(torch.int32)
-    return torch.cat([m32.reshape(-1), m16.reshape(-1), split.reshape(-1)])
+    m32, m16, split = rd_maps(y, q, torch.tensor(lam, dtype=torch.float32))
+    return torch.cat([m32[0].reshape(-1), m16[0].reshape(-1),
+                      split.to(torch.int32).reshape(-1)])
 
 
 class LaunchedBandMaps:
@@ -143,10 +153,25 @@ def launch_band_rd_maps(y_band: np.ndarray, dc_q: int, ac_q: int,
     return LaunchedBandMaps(y0, x0, out, y_band.shape)
 
 
-def frame_rd_maps(*_args, **_kw):
-    """Whole-frame RD maps (intra frames that cannot take the wavefront)."""
-    raise NotImplementedError(
-        "device frame_rd_maps: ROADMAP queue 1 item 10 (off-path programs)")
+def frame_rd_maps(y_plane: np.ndarray, dc_q: int, ac_q: int, lam: float,
+                  device="cuda") -> dict:
+    """RD maps of a whole luma plane for the host walk of an intra frame
+    off the wavefront (device_pipeline.py:191 of the JAX package): for the
+    32 and 16 block sizes numpy (mode int32, cost float32, nnz int32) maps,
+    and "split32", the 32 -> 16 split decision.  y_plane: the SB-padded
+    int32 plane at any bit depth (the edges outside it are 128, as in the
+    JAX package)."""
+    yt = torch.as_tensor(np.ascontiguousarray(y_plane, np.int32),
+                         device=device)
+    if yt.device.type == "cuda":
+        kernels.COUNTS["frame_rd_maps"] += 1
+    lam_t = torch.tensor(float(lam), dtype=torch.float32)
+    m32, m16, split = rd_maps(yt, (int(dc_q), int(ac_q)), lam_t)
+    out = {n: (m.cpu().numpy(), c.cpu().numpy(),
+               z.cpu().numpy().astype(np.int32))
+           for n, (m, c, z) in ((32, m32), (16, m16))}
+    out["split32"] = split.cpu().numpy()
+    return out
 
 
 # -- motion estimation: hierarchical full search (K10) -------------------------
@@ -212,13 +237,15 @@ def me_fullpel(src: torch.Tensor, ref: torch.Tensor, n: int = 32,
                count: str = "me_fullpel") -> torch.Tensor:
     """Full-pel motion map of the n x n blocks: (H/n, W/n, 2) int32 in
     pixels (K10).  src, ref: (H, W) planes of the same shape, H and W
-    multiples of 64 (uint8 on the card).  count: the launch counter of the
-    caller's route ("me_fullpel" in the inter pass, "me_fullpel_frame"
-    from frame_me_map)."""
+    multiples of 64 (both uint8 or both uint16 on the card).  count: the
+    launch counter of the caller's route ("me_fullpel" in the inter pass,
+    "me_fullpel_frame" from frame_me_map)."""
     if src.device.type == "cpu":
         return me_fullpel_plain(src, ref, n)
-    if n != 32 or src.dtype != torch.uint8 or ref.dtype != torch.uint8:
-        raise ValueError("K10 searches 32x32 blocks of uint8 planes")
+    if n != 32 or src.dtype != ref.dtype \
+            or src.dtype not in (torch.uint8, torch.uint16):
+        raise ValueError("K10 searches 32x32 blocks of uint8 or uint16 "
+                         "planes")
     Hh, Ww = src.shape
     s = src if src.stride(1) == 1 else src.contiguous()
     r = ref if ref.stride(1) == 1 else ref.contiguous()
@@ -229,8 +256,8 @@ def me_fullpel(src: torch.Tensor, ref: torch.Tensor, n: int = 32,
     fn = kernels.lib("me_fullpel").me_fullpel
     kernels.COUNTS[count] += 1
     kernels.check(fn(s.data_ptr(), s.stride(0), r.data_ptr(), r.stride(0),
-                     Hh, Ww, quarter.data_ptr(), mv.data_ptr(),
-                     kernels.stream_ptr(s)), "me_fullpel")
+                     Hh, Ww, s.element_size(), quarter.data_ptr(),
+                     mv.data_ptr(), kernels.stream_ptr(s)), "me_fullpel")
     return mv
 
 
@@ -238,19 +265,18 @@ def frame_me_map(src_y: np.ndarray, ref_y: np.ndarray, n: int = 32,
                  bit_depth: int = 8, device="cuda") -> np.ndarray:
     """The ME map of the host inter search (device_pipeline.py:339 of the
     JAX package): me_fullpel over two host int32 planes of the same
-    64-aligned shape, as (by, bx, 2) int32 full-pel MVs in 1/8 pel."""
-    if bit_depth != 8:
-        raise NotImplementedError(
-            "frame_me_map above 8 bits (K10 reads uint8 planes): ROADMAP "
-            "queue 1 item 10")
+    64-aligned shape, as (by, bx, 2) int32 full-pel MVs in 1/8 pel.  The
+    planes go up as uint8 at 8 bits and as uint16 above."""
     src_y, ref_y = np.asarray(src_y), np.asarray(ref_y)
     if src_y.shape != ref_y.shape or src_y.shape[0] % 64 \
             or src_y.shape[1] % 64:
         raise ValueError("frame_me_map: planes of one 64-aligned shape")
+    hi = (1 << bit_depth) - 1
     for a in (src_y, ref_y):
-        if a.min() < 0 or a.max() > 255:
-            raise ValueError("frame_me_map: samples outside 0..255")
-    up = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.uint8),
+        if a.min() < 0 or a.max() > hi:
+            raise ValueError(f"frame_me_map: samples outside 0..{hi}")
+    dtype = np.uint8 if bit_depth == 8 else np.uint16
+    up = lambda a: torch.as_tensor(np.ascontiguousarray(a, dtype),
                                    device=device)
     mv = me_fullpel(up(src_y), up(ref_y), n, count="me_fullpel_frame")
     return mv.cpu().numpy().astype(np.int32) * 8

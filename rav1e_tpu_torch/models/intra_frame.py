@@ -298,7 +298,8 @@ class IntraFrameEncoder:
                 and type(self) is IntraFrameEncoder):
             from rav1e_tpu_torch.models.device_pipeline import frame_rd_maps
 
-            rd = frame_rd_maps(self.src[0], self.dc_q, self.ac_q, self.lam)
+            rd = frame_rd_maps(self.src[0], self.dc_q, self.ac_q, self.lam,
+                               device=self.device)
             self._rd_maps = rd
             self._mode_maps = {32: rd[32], 16: rd[16]}
 

@@ -21,9 +21,15 @@ cdef_search_apply_device runs the same search on uploaded host-deblocked
 planes (cdef_jax.py:374), and cdef_frame_device applies the fixed
 strengths of the sampled host search (cdef_jax.py:168).
 
-The JAX search sums the SSE in f32; here the sums are exact integers, so
-a superblock whose two best candidates lie within f32 rounding of each
-other may pick the other one (see tests/test_torch_filters.py).
+Above 8 bits the planes carry bd-bit samples: the candidate strengths
+are shifted left by bd - 8 before the variance adjustment, the damping
+grows by bd - 8 (callers pass it so), and the direction search reads
+(x >> (bd - 8)) - 128 (cdef_jax.py:238-311, spec 7.15).
+
+The JAX search sums the SSE in f32; here the sums are exact int64, so a
+superblock whose two best candidates lie within f32 rounding of each
+other may pick the other one (see tests/test_torch_filters.py and
+tests/test_torch_hbd.py).
 
 On a CUDA tensor the wrappers launch the kernels in csrc/; on a CPU
 tensor they run the plain versions below.
@@ -162,11 +168,12 @@ def _adjust(strength, var: torch.Tensor) -> torch.Tensor:
 
 
 def _filter_plane_plain(plane, dir_b, pri_b, sec_b, damping: int, act_b,
-                        sub: int) -> torch.Tensor:
+                        sub: int, scale: int = 0) -> torch.Tensor:
     """CDEF of a (h, w) plane with per-8x8-luma-block maps (directions,
     adjusted primary strengths, secondary strengths, active flags), as
     _filter_plane_jnp with per-block secondary strengths.  Each sample
-    gathers the 12 taps of its block's direction."""
+    gathers the 12 taps of its block's direction; the primary taps'
+    weights follow the parity of the strength >> scale (bd - 8)."""
     h, w = plane.shape
     bs = 8 >> sub
     dev = plane.device
@@ -201,7 +208,7 @@ def _filter_plane_plain(plane, dir_b, pri_b, sec_b, damping: int, act_b,
             mx = torch.where(valid, torch.maximum(mx, p), mx)
             mn = torch.where(valid, torch.minimum(mn, p), mn)
 
-    odd = (pri & 1) == 1
+    odd = ((pri >> scale) & 1) == 1
     for k in range(2):
         taps(d, k, pri, torch.where(odd, 3, 4 if k == 0 else 2))
     for d2 in ((d + 2) & 7, (d + 6) & 7):
@@ -223,9 +230,10 @@ def _sb_sse(diff: torch.Tensor, bs: int) -> torch.Tensor:
     return sq.reshape(nsy, bs, nsx, bs).sum((1, 3))
 
 
-def _cand_maps(dirs, var, idx_b):
+def _cand_maps(dirs, var, idx_b, scale: int = 0):
     """Per-block (luma pri, luma sec, luma dir, chroma pri, chroma dir) for
-    per-block candidate-pair indices idx_b."""
+    per-block candidate-pair indices idx_b, the strengths shifted left by
+    scale (bd - 8)."""
     dev = dirs.device
     ypri = torch.as_tensor([p for p, _ in Y_CANDIDATES], dtype=torch.int32,
                            device=dev)[idx_b]
@@ -234,43 +242,48 @@ def _cand_maps(dirs, var, idx_b):
     uvpri = torch.as_tensor([UV_CANDIDATES[i][0] for i in PAIR_UV_IDX],
                             dtype=torch.int32, device=dev)[idx_b]
     zero = torch.zeros_like(dirs)
-    return (_adjust(ypri, var), ysec, torch.where(ypri > 0, dirs, zero),
-            uvpri, torch.where(uvpri > 0, dirs, zero))
+    return (_adjust(ypri << scale, var), ysec << scale,
+            torch.where(ypri > 0, dirs, zero), uvpri << scale,
+            torch.where(uvpri > 0, dirs, zero))
 
 
 def cdef_filter_plain(y, u, v, sy, su, sv, dirs, var, active, damping: int,
-                      mode: int, idx_map=None):
-    """Plain version of K6.  SEARCH: (11, nsby, nsbx) int32 superblock SSE
+                      mode: int, idx_map=None, bd: int = 8):
+    """Plain version of K6.  SEARCH: (11, nsby, nsbx) int64 superblock SSE
     of the 8 luma candidates and of the 3 chroma candidates (U + V).
     APPLY: the (Y, U, V) int32 planes of the candidate pair idx_map
-    (nsby, nsbx) picks for each superblock.  damping: the luma damping
-    (chroma filters with damping - 1)."""
+    (nsby, nsbx) picks for each superblock.  damping: the luma damping,
+    already grown by bd - 8 (chroma filters with damping - 1); the
+    candidates' strengths are shifted left by bd - 8."""
     h, w = y.shape
     nby, nbx = h // 8, w // 8
+    sc = bd - 8
     act = active.to(torch.bool)
     zero = torch.zeros_like(dirs)
     if mode == APPLY:
         idx_b = idx_map.to(torch.int64).repeat_interleave(8, 0) \
             .repeat_interleave(8, 1)[:nby, :nbx]
-        ypri, ysec, ydir, uvpri, uvdir = _cand_maps(dirs, var, idx_b)
-        yo = _filter_plane_plain(y, ydir, ypri, ysec, damping, act, 0)
+        ypri, ysec, ydir, uvpri, uvdir = _cand_maps(dirs, var, idx_b, sc)
+        yo = _filter_plane_plain(y, ydir, ypri, ysec, damping, act, 0, sc)
         uo, vo = (_filter_plane_plain(p, uvdir, uvpri, zero, damping - 1,
-                                      act, 1) for p in (u, v))
+                                      act, 1, sc) for p in (u, v))
         return yo, uo, vo
     sse = []
     for pri, sec in Y_CANDIDATES:
-        out = _filter_plane_plain(y, dirs if pri else zero, _adjust(pri, var),
-                                  torch.full_like(dirs, sec), damping, act, 0)
+        out = _filter_plane_plain(y, dirs if pri else zero,
+                                  _adjust(pri << sc, var),
+                                  torch.full_like(dirs, sec << sc), damping,
+                                  act, 0, sc)
         sse.append(_sb_sse(out - sy.to(torch.int32), 64))
     for pri, _sec in UV_CANDIDATES:
-        pm = torch.full_like(dirs, pri)
+        pm = torch.full_like(dirs, pri << sc)
         tot = 0
         for p, s in ((u, su), (v, sv)):
             out = _filter_plane_plain(p, dirs if pri else zero, pm, zero,
-                                      damping - 1, act, 1)
+                                      damping - 1, act, 1, sc)
             tot = tot + _sb_sse(out - s.to(torch.int32), 32)
         sse.append(tot)
-    return torch.stack(sse).to(torch.int32)
+    return torch.stack(sse)
 
 
 def _i32(t):
@@ -279,13 +292,15 @@ def _i32(t):
 
 
 def cdef_filter(y, u, v, sy, su, sv, dirs, var, active, damping: int,
-                mode: int, idx_map=None):
+                mode: int, idx_map=None, bd: int = 8):
     """K6 on one frame: y (h, w), u/v (h/2, w/2) and the sources of the same
-    shapes; dirs/var/active (h/8, w/8).  Returns what cdef_filter_plain
-    returns for `mode`."""
+    shapes, bd-bit samples; dirs/var/active (h/8, w/8).  Returns what
+    cdef_filter_plain returns for `mode`."""
     if y.device.type == "cpu":
         return cdef_filter_plain(y, u, v, sy, su, sv, dirs, var, active,
-                                 damping, mode, idx_map)
+                                 damping, mode, idx_map, bd)
+    if bd not in (8, 10, 12):
+        raise ValueError(f"cdef_filter: bit depth {bd}")
     h, w = y.shape
     nby, nbx = h // 8, w // 8
     nsby, nsbx = -(-h // 64), -(-w // 64)
@@ -307,14 +322,14 @@ def cdef_filter(y, u, v, sy, su, sv, dirs, var, active, damping: int,
         uo = torch.empty((h >> 1, w >> 1), dtype=torch.int32, device=dev)
         vo = torch.empty_like(uo)
     else:
-        sse = torch.empty((11, nsby, nsbx), dtype=torch.int32, device=dev)
+        sse = torch.empty((11, nsby, nsbx), dtype=torch.int64, device=dev)
     fn = kernels.lib("cdef_filter").cdef_filter
     kernels.COUNTS["cdef_filter"] += 1
     kernels.check(fn(y.data_ptr(), u.data_ptr(), v.data_ptr(), y.stride(0),
                      u.stride(0), sy.data_ptr(), su.data_ptr(), sv.data_ptr(),
                      sy.stride(0), su.stride(0), h, w, dirs.data_ptr(),
-                     var.data_ptr(), act.data_ptr(), nbx, damping, mode,
-                     kernels.ptr(idx), kernels.ptr(sse), kernels.ptr(yo),
+                     var.data_ptr(), act.data_ptr(), nbx, damping, bd - 8,
+                     mode, kernels.ptr(idx), kernels.ptr(sse), kernels.ptr(yo),
                      kernels.ptr(uo), kernels.ptr(vo), kernels.stream_ptr(y)),
                   "cdef_filter")
     return (yo, uo, vo) if mode == APPLY else sse
@@ -359,19 +374,18 @@ def active_blocks(skip: torch.Tensor, h: int, w: int) -> torch.Tensor:
 def search_apply(y, u, v, sy, su, sv, skip, sb_lam: float, damping: int,
                  bd: int = 8):
     """CDEF search and apply of one frame (the coded area): y (h, w), u/v
-    (h/2, w/2), sources alike, skip the per-mi map.  Returns (use_sb,
-    frame_best, idx_map, y_out, u_out, v_out), all on y's device."""
-    if bd != 8:
-        raise NotImplementedError("CDEF on the device is 8-bit only "
-                                  "(ROADMAP queue 1 item 10)")
+    (h/2, w/2), sources alike, bd-bit samples, skip the per-mi map.
+    Returns (use_sb, frame_best, idx_map, y_out, u_out, v_out), all on y's
+    device."""
     h, w = y.shape
     damping = damping + bd - 8  # spec: damping scales with bit depth
     dirs, var = cdef_dir(y, bd)
     act = active_blocks(skip, h, w)
-    sse = cdef_filter(y, u, v, sy, su, sv, dirs, var, act, damping, SEARCH)
+    sse = cdef_filter(y, u, v, sy, su, sv, dirs, var, act, damping, SEARCH,
+                      None, bd)
     use_sb, frame_best, idx_map = decide(sse, skip, sb_lam, h, w)
     yo, uo, vo = cdef_filter(y, u, v, sy, su, sv, dirs, var, act, damping,
-                             APPLY, idx_map)
+                             APPLY, idx_map, bd)
     return use_sb, frame_best, idx_map, yo, uo, vo
 
 
@@ -421,9 +435,6 @@ def cdef_frame_device(rec, skip, y_pri: int, y_sec: int, uv_pri: int,
     no pair of the table joins them, a second apply gives the chroma."""
     if (y_pri | y_sec | uv_pri | uv_sec) == 0:
         return
-    if bd != 8:
-        raise NotImplementedError("CDEF on the device is 8-bit only "
-                                  "(ROADMAP queue 1 item 10)")
     if (y_pri, y_sec) not in Y_CANDIDATES or \
             (uv_pri, uv_sec) not in UV_CANDIDATES:
         raise ValueError("cdef_frame_device: strengths outside the "
@@ -438,7 +449,7 @@ def cdef_frame_device(rec, skip, y_pri: int, y_sec: int, uv_pri: int,
     nsb = (-(-h // 64), -(-w // 64))
     apply = lambda k: cdef_filter(
         y, u, v, y, u, v, dirs, var, act, damping + bd - 8, APPLY,
-        torch.full(nsb, k, dtype=torch.int32, device=y.device))
+        torch.full(nsb, k, dtype=torch.int32, device=y.device), bd)
     yo, uo, vo = apply(ky)
     if PAIR_UV_IDX[ky] != PAIR_UV_IDX[kc]:
         _y, uo, vo = apply(kc)

@@ -14,9 +14,11 @@ version below give the same taps.  The JAX version sums and solves in
 f32: a tap may round the other way where coef * 128 lies near a .5 tie.
 
 K8 also has a frame mode (wiener_filter_frame): the whole restored plane
-with given taps, no unit choice.  wiener_filter_frame_device runs it for
-the host LR search of speed <= 5 (lrf_jax.py:254), whose tap solve stays
-on the host.
+with given taps, no unit choice, at 8, 10 or 12 bits.
+wiener_filter_frame_device runs it for the host LR search (lrf_jax.py:254)
+of speed <= 5 and of the host-coded frames, whose tap solve stays on the
+host.  The unit-choice mode runs in the chain only, after an 8-bit
+wavefront pass.
 
 On a CUDA tensor the wrappers launch the kernels in csrc/; on a CPU
 tensor they run the plain versions below.
@@ -180,10 +182,11 @@ def unit_index(unit: int, size: int, shifted: bool) -> np.ndarray:
     return idx
 
 
-def wiener_filter_plain(cd, db, vt, ht, stripe: int, hh: int, ww: int):
+def wiener_filter_plain(cd, db, vt, ht, stripe: int, hh: int, ww: int,
+                        bd: int = 8):
     """The Wiener-restored (hh, ww) int32 plane (lrf_np.wiener_filter_frame)
-    from the CDEF output cd and the deblocked db (>= hh x ww each) with
-    3-tap sets vt/ht (int32 tensors)."""
+    from the CDEF output cd and the deblocked db (>= hh x ww each, bd-bit
+    samples) with 3-tap sets vt/ht (int32 tensors)."""
     dev = cd.device
     vf, hf = taps7(vt.to(torch.int32)), taps7(ht.to(torch.int32))
     ridx, use_db = (torch.as_tensor(a, device=dev)
@@ -195,9 +198,12 @@ def wiener_filter_plain(cd, db, vt, ht, stripe: int, hh: int, ww: int):
     hor = torch.zeros((hh, 7, ww), dtype=torch.int32, device=dev)
     for t in range(7):
         hor = hor + hf[t] * rows[:, :, t : t + ww]
-    hor = torch.clamp((hor + ((1 << 14) + 4)) >> 3, 0, (1 << 13) - 1)
-    s = (vf[None, :, None] * hor).sum(1, dtype=torch.int32) - (1 << 18)
-    return torch.clamp((s + (1 << 10)) >> 11, 0, 255)
+    round0, round1 = (3, 11) if bd < 12 else (5, 9)
+    hor = torch.clamp((hor + ((1 << (bd + 6)) + (1 << (round0 - 1))))
+                      >> round0, 0, (1 << (bd + 1 + 7 - round0)) - 1)
+    s = (vf[None, :, None] * hor).sum(1, dtype=torch.int32) \
+        - (1 << (bd + round1 - 1))
+    return torch.clamp((s + (1 << (round1 - 1))) >> round1, 0, (1 << bd) - 1)
 
 
 def wiener_lr_plain(cd, db, src, taps, en, lam: float, rate: float,
@@ -252,30 +258,35 @@ def wiener_lr(cd, db, src, taps, en, lam: float, rate: float, unit: int,
     fn = kernels.lib("wiener_lr").wiener_lr
     kernels.COUNTS["wiener_lr"] += 1
     kernels.check(fn(cd.data_ptr(), cd.stride(0), db.data_ptr(), db.stride(0),
-                     src.data_ptr(), src.stride(0), hh, ww, unit,
+                     src.data_ptr(), src.stride(0), hh, ww, unit, 8,
                      taps.data_ptr(), en.data_ptr(), float(np.float32(lam)),
                      float(np.float32(rate)), out.data_ptr(),
                      choice.data_ptr(), kernels.stream_ptr(cd)), "wiener_lr")
     return out, choice.to(torch.bool)
 
 
-def wiener_filter_frame(cd, db, taps, stripe: int, hh: int, ww: int):
-    """The whole Wiener-restored (hh, ww) int32 plane with taps (2, 3)
-    int32 (vertical, horizontal) and the given stripe size: K8 in frame
-    mode, no unit sums or choice (plain version: wiener_filter_plain)."""
+def wiener_filter_frame(cd, db, taps, stripe: int, hh: int, ww: int,
+                        bd: int = 8):
+    """The whole Wiener-restored (hh, ww) int32 plane of bd-bit samples
+    with taps (2, 3) int32 (vertical, horizontal) and the given stripe
+    size: K8 in frame mode, no unit sums or choice (plain version:
+    wiener_filter_plain)."""
     if cd.device.type == "cpu":
-        return wiener_filter_plain(cd, db, taps[0], taps[1], stripe, hh, ww)
-    if stripe not in (32, 64) or taps.shape != (2, 3) or any(
-            t.shape[0] < hh or t.shape[1] < ww for t in (cd, db)):
+        return wiener_filter_plain(cd, db, taps[0], taps[1], stripe, hh, ww,
+                                   bd)
+    if stripe not in (32, 64) or taps.shape != (2, 3) or bd not in (
+            8, 10, 12) or any(t.shape[0] < hh or t.shape[1] < ww
+                              for t in (cd, db)):
         raise ValueError("wiener_filter_frame: stripe 32 or 64, taps "
-                         "(2, 3), planes of at least hh x ww")
+                         "(2, 3), bit depth 8, 10 or 12, planes of at "
+                         "least hh x ww")
     cd, db = _rows(cd), _rows(db)
     taps = taps.to(torch.int32).contiguous()
     out = torch.empty((hh, ww), dtype=torch.int32, device=cd.device)
     fn = kernels.lib("wiener_lr").wiener_lr
     kernels.COUNTS["wiener_lr_frame"] += 1
     kernels.check(fn(cd.data_ptr(), cd.stride(0), db.data_ptr(), db.stride(0),
-                     None, 0, hh, ww, stripe, taps.data_ptr(), None, 0.0,
+                     None, 0, hh, ww, stripe, bd, taps.data_ptr(), None, 0.0,
                      0.0, out.data_ptr(), None, kernels.stream_ptr(cd)),
                   "wiener_lr (frame mode)")
     return out
@@ -286,17 +297,15 @@ def wiener_filter_frame_device(cdef_p, deblock_p, vtaps3, htaps3,
                                frame_h: int, dev_cdef=None, dev_db=None,
                                device="cuda") -> np.ndarray:
     """lrf_np.wiener_filter_frame on the device (lrf_jax.py:254): the
-    (frame_h, frame_w) int64 restored plane.  dev_cdef/dev_db: planes
-    already on the device (the CDEF pass's luma), used instead of
-    uploading cdef_p/deblock_p."""
-    if bd != 8:
-        raise NotImplementedError("the device Wiener filter is 8-bit only "
-                                  "(ROADMAP queue 1 item 10)")
+    (frame_h, frame_w) int64 restored plane of bd-bit samples.
+    dev_cdef/dev_db: planes already on the device (the CDEF pass's luma),
+    used instead of uploading cdef_p/deblock_p."""
     up = lambda a: torch.as_tensor(
         np.ascontiguousarray(a[:frame_h, :frame_w], np.int32), device=device)
     cd = dev_cdef if dev_cdef is not None else up(cdef_p)
     db = dev_db if dev_db is not None else up(deblock_p)
     taps = torch.as_tensor(np.asarray([vtaps3, htaps3], np.int32),
                            device=cd.device)
-    out = wiener_filter_frame(cd, db, taps, stripe_size, frame_h, frame_w)
+    out = wiener_filter_frame(cd, db, taps, stripe_size, frame_h, frame_w,
+                              bd)
     return out.cpu().numpy().astype(np.int64)

@@ -47,19 +47,22 @@ def wiener_7tap(taps3) -> np.ndarray:
 def _stripe_source(cdef_p: np.ndarray, deblock_p: np.ndarray, y: int, t: int,
                    stripe_size: int, h: int) -> tuple:
     """Row index + which plane for filter tap row y+t under the stripe rule.
-    Luma stripes run [0,56), [56,120), ...; returns (row, use_deblocked)."""
+    Luma stripes run [0,56), [56,120), ...; returns (row, use_deblocked).
+    The row is clamped to the plane before the stripe test, as the spec's
+    get_source_sample does (7.17.7): where a stripe ends at the plane's
+    last row, the taps below it read that row of the CDEF output, not of
+    the deblocked plane.  (The JAX package's copy tests first and so reads
+    the deblocked row there, which libdav1d does not: ROADMAP F7.)"""
     off = stripe_size >> 3  # 8 luma, 4 chroma
     stripe_idx = (y + off) // stripe_size
     s0 = stripe_idx * stripe_size - off
     s1 = s0 + stripe_size
-    yy = y + t
+    yy = max(0, min(y + t, h - 1))
     if yy < s0:
-        yy = max(yy, s0 - 2)
-        return max(0, min(yy, h - 1)), True
+        return max(yy, s0 - 2), True
     if yy >= s1:
-        yy = min(yy, s1 + 1)
-        return max(0, min(yy, h - 1)), True
-    return max(0, min(yy, h - 1)), False
+        return min(yy, s1 + 1), True
+    return yy, False
 
 
 def wiener_filter_unit(

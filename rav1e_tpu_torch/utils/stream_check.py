@@ -2,8 +2,10 @@
 
 The card's machine has no libdav1d, so `chip_smoke.py --save-stream DIR`
 writes its default-configuration stream as DIR/default.ivf and the
-SHA-256 of each displayed frame's recon as DIR/default_recon.json.  On a
-machine with libdav1d:
+SHA-256 of each displayed frame's recon as DIR/default_recon.json (and
+likewise its 1080p key-frame stream as DIR/key.ivf and its 10-bit stream
+as DIR/hbd.ivf).  On a machine
+with libdav1d:
 
     python -m rav1e_tpu_torch.utils.stream_check DIR/default.ivf \\
         DIR/default_recon.json
@@ -22,11 +24,17 @@ import sys
 import numpy as np
 
 
-def recon_digest(planes) -> str:
-    """SHA-256 of a frame's Y, U, V planes as uint8 bytes, in order."""
+def recon_digest(planes, bit_depth: int = 8) -> str:
+    """SHA-256 of a frame's Y, U, V planes at their sample width, in
+    order: uint8 bytes at 8 bits, little-endian uint16 above."""
+    dtype = np.uint8 if bit_depth == 8 else np.dtype("<u2")
     h = hashlib.sha256()
     for p in planes:
-        h.update(np.ascontiguousarray(np.asarray(p).astype(np.uint8)).tobytes())
+        a = np.asarray(p)
+        if a.min() < 0 or a.max() >= 1 << bit_depth:
+            raise ValueError(f"recon_digest: samples outside {bit_depth} "
+                             "bits")
+        h.update(np.ascontiguousarray(a.astype(dtype)).tobytes())
     return h.hexdigest()
 
 
@@ -38,9 +46,10 @@ def main(argv) -> int:
     with open(ivf, "rb") as fh:
         packets = [data for _pts, data in read_ivf(fh)]
     with open(digests) as fh:
-        want = json.load(fh)["recon_sha256"]
+        rec = json.load(fh)
+    want, bd = rec["recon_sha256"], rec.get("bit_depth", 8)
     dec = dav1d_oracle.decode_stream(packets)
-    got = [recon_digest(d) for d in dec]
+    got = [recon_digest(d, bd) for d in dec]
     ok = got == want
     print(json.dumps({"packets": len(packets), "frames_decoded": len(dec),
                       "frames_expected": len(want),

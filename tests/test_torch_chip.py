@@ -4,7 +4,9 @@ These tests need an NVIDIA GPU and nvcc: each builds its kernel from
 rav1e_tpu_torch/csrc, launches it on CUDA tensors and holds the result
 against the plain version on the same inputs (identical for intra_pred,
 inv_txfm, deblock, cdef_dir, cdef_filter, wiener_solve, wiener_lr, also
-in frame mode, mc_pred, me_fullpel, also through frame_me_map, and cfl;
+in frame mode, mc_pred, me_fullpel, also through frame_me_map, and cfl,
+and above 8 bits cdef_dir, cdef_filter, wiener_lr in frame mode and
+me_fullpel on uint16 planes; frame_rd_maps by its tie rule;
 fwd_txq, with and without the inter race's thinning, within its
 rounding-tie share).  Without a card they skip.  On a machine without JAX (the tests' conftest imports
 it) run them as
@@ -518,3 +520,148 @@ def test_default_gop_on_card_conforms():
     assert sum(fe.comp_block_count for fe in host) > 0
     for fe in host[:2]:
         assert recon_check.filters_match(fe, fe._chk_prefilter, fe._chk_out)
+
+
+# -- above 8 bits ----------------------------------------------------------------
+
+
+def _hbd_planes(rng, h, w, bd):
+    """(src, rec) int32 at bd bits: the 8-bit content shifted with random
+    low bits, its top quarter at maximum contrast (0 and (1 << bd) - 1 in
+    8x8 blocks, the source the inverse)."""
+    mx = (1 << bd) - 1
+    src, rec = (np.clip((p.astype(np.int64) << (bd - 8))
+                        + rng.integers(0, 1 << (bd - 8), p.shape), 0, mx)
+                for p in _content(rng, h, w))
+    cb = (np.arange(h)[:, None] // 8 + np.arange(w) // 8) % 2
+    rec[: h // 4] = cb[: h // 4] * mx
+    src[: h // 4] = mx - rec[: h // 4]
+    return src.astype(np.int32), rec.astype(np.int32)
+
+
+@pytest.mark.parametrize("bd", [10, 12])
+@pytest.mark.parametrize("h,w", [(1088, 1920), (272, 200)])
+def test_cdef_kernels_high_bit_depth(h, w, bd):
+    """K5 and K6 at 10 and 12 bits (strengths shifted by bd - 8, damping
+    grown by it): directions, the search's int64 superblock SSE (beyond
+    2^31 on the maximum-contrast rows) and the apply of random candidate
+    pairs identical to the plain versions."""
+    from rav1e_tpu_torch.ops import cdef
+
+    dev = _card()
+    rng = np.random.default_rng(SEED + h + bd)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    planes = [_hbd_planes(rng, h, w, bd),
+              _hbd_planes(rng, h // 2, w // 2, bd),
+              _hbd_planes(rng, h // 2, w // 2, bd)]
+    src = [t(s) for s, _ in planes]
+    rec = [t(r) for _, r in planes]
+    dirs, var = cdef.cdef_dir(rec[0], bd)
+    dp_, vp_ = cdef.cdef_dir_plain(rec[0], bd)
+    assert torch.equal(dirs, dp_) and torch.equal(var, vp_)
+    act = t(rng.random((h // 8, w // 8)) < 0.8)
+    args = (*rec, *src, dirs, var, act, 4 + bd - 8)
+    sse = cdef.cdef_filter(*args, cdef.SEARCH, None, bd)
+    assert sse.dtype == torch.int64
+    assert torch.equal(sse, cdef.cdef_filter_plain(*args, cdef.SEARCH, None,
+                                                   bd))
+    assert int(sse.max()) > 2 ** 31
+    idx = t(rng.integers(0, 8, (-(-h // 64), -(-w // 64))).astype(np.int32))
+    got = cdef.cdef_filter(*args, cdef.APPLY, idx, bd)
+    ref = cdef.cdef_filter_plain(*args, cdef.APPLY, idx, bd)
+    for g, r, p in zip(got, ref, rec):
+        assert torch.equal(g, r)
+        assert not torch.equal(g, p)
+
+
+@pytest.mark.parametrize("bd", [10, 12])
+@pytest.mark.parametrize("stripe", [64, 32])
+def test_wiener_lr_frame_kernel_high_bit_depth(stripe, bd):
+    """K8 in frame mode at 10 and 12 bits (round0/round1 and the clip of
+    lrf_jax.py:50-55), identical to wiener_filter_plain, the output
+    reaching both ends of the range."""
+    from rav1e_tpu_torch.ops import lrf
+
+    dev = _card()
+    rng = np.random.default_rng(SEED + stripe + bd)
+    mx = (1 << bd) - 1
+    hh, ww = (1080, 1920) if stripe == 64 else (540, 960)
+    cd = torch.as_tensor(rng.integers(0, mx + 1, (hh + 8, ww + 8)),
+                         device=dev, dtype=torch.int32)
+    cd[:16] = torch.where(cd[:16] > mx // 2, mx, 0)
+    db = torch.clamp(cd + torch.as_tensor(rng.integers(-90, 91, cd.shape),
+                                          device=dev, dtype=torch.int32),
+                     0, mx)
+    taps = torch.tensor([[0 if stripe == 32 else 3, -7, 15], [0, 4, -3]],
+                        dtype=torch.int32, device=dev)
+    got = lrf.wiener_filter_frame(cd, db, taps, stripe, hh, ww, bd)
+    ref = lrf.wiener_filter_plain(cd, db, taps[0], taps[1], stripe, hh, ww,
+                                  bd)
+    assert torch.equal(got, ref)
+    assert int(got.max()) == mx and int(got.min()) == 0
+
+
+@pytest.mark.parametrize("bd", [10, 12])
+def test_me_fullpel_kernel_uint16(bd):
+    """K10 on uint16 planes (frame_me_map above 8 bits) at 1088x1920: a
+    shifted noisy reference, identical to the plain version, through
+    frame_me_map counted as the host route."""
+    from rav1e_tpu_torch import kernels
+    from rav1e_tpu_torch.models import device_pipeline as dp
+
+    dev = _card()
+    rng = np.random.default_rng(SEED + bd)
+    mx = (1 << bd) - 1
+    h, w = 1088, 1920
+    base = rng.integers(0, mx + 1, (h + 64, w + 64))
+    base = (base + np.roll(base, 1, 0) + np.roll(base, 1, 1)) // 3
+    src = base[32 : 32 + h, 32 : 32 + w]
+    ref = np.clip(base[32 - 7 : 32 - 7 + h, 32 + 13 : 32 + 13 + w]
+                  + rng.integers(-12, 13, (h, w)), 0, mx)
+    t = lambda a: torch.as_tensor(a.astype(np.uint16), device=dev)
+    got = dp.me_fullpel(t(src), t(ref), 32)
+    assert torch.equal(got, dp.me_fullpel_plain(t(src), t(ref), 32))
+    assert (got[2:-2, 2:-2] == torch.as_tensor(
+        (7, -13), dtype=torch.int32, device=dev)).float().mean() > 0.9
+    before = kernels.COUNTS["me_fullpel_frame"]
+    mv8 = dp.frame_me_map(src.astype(np.int32), ref.astype(np.int32), 32,
+                          bit_depth=bd, device=dev)
+    assert kernels.COUNTS["me_fullpel_frame"] == before + 1
+    assert np.array_equal(mv8, got.cpu().numpy() * 8)
+
+
+def test_frame_rd_maps_on_card():
+    """frame_rd_maps of a 10-bit 1088x1920 plane on the card (K1 twice, K2's
+    float variant twice, counted as the route) against the same route
+    through the plain versions: modes, nnz and split32 identical but at
+    near-ties (chip_smoke.rd_map_ties)."""
+    import chip_smoke
+    from rav1e_tpu_torch import kernels
+    from rav1e_tpu_torch.models import device_pipeline as dp
+    from rav1e_tpu_torch.ops import quantize_np as qz
+    from rav1e_tpu_torch.utils.content import make_planes
+
+    dev = _card()
+    y = make_planes(1920, 1088, 1, bit_depth=10)[0][0].astype(np.int32)
+    dc_q, ac_q = qz.dc_q(100, 0, 10), qz.ac_q(100, 0, 10)
+    lam = 0.1155 * (dc_q / 8.0) ** 2
+    before = dict(kernels.COUNTS)
+    got = dp.frame_rd_maps(y, dc_q, ac_q, lam, device=dev)
+    assert kernels.COUNTS["frame_rd_maps"] == before["frame_rd_maps"] + 1
+    assert kernels.COUNTS["intra_pred"] == before["intra_pred"] + 2
+    assert kernels.COUNTS["fwd_txq"] == before["fwd_txq"] + 2
+    with chip_smoke.plain_kernels():
+        ref = dp.frame_rd_maps(y, dc_q, ac_q, lam, device=dev)
+    yt = torch.as_tensor(y, device=dev)
+    lam_t = torch.tensor(float(lam), dtype=torch.float32)
+
+    def table_of(n):
+        from rav1e_tpu_torch.ops import transforms as tt
+
+        blocks, stack = dp.predict_all(yt, n)
+        Fv, FhT = dp._fwd_mats(n, dev)
+        d, r, _z = tt.fwd_rd_float_plain(blocks[None] - stack, Fv, FhT,
+                                         dc_q, ac_q, 1 if n == 32 else 0)
+        return (d * dp.DIST_SCALE[n] + lam_t * (r + 6.0)).cpu().numpy()
+
+    chip_smoke.rd_map_ties(got, ref, table_of)

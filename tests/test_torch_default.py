@@ -193,21 +193,30 @@ def test_frame_me_map_matches_jax(kind):
         assert (got[:-1] == (8 * 3, -8 * 6)).all(-1).mean() > 0.85
 
 
-def test_frame_me_map_refuses_high_bit_depth_and_bad_planes():
-    """K10 reads 8-bit planes: a 10-bit frame raises NotImplementedError
-    naming its ROADMAP item; planes of two shapes, a shape that is not
-    64-aligned, or samples outside 0..255 raise ValueError."""
-    from rav1e_tpu_torch.models.device_pipeline import frame_me_map
+def test_frame_me_map_high_bit_depth_and_bad_planes():
+    """K10 searches 10-bit planes too: a 10-bit frame_me_map on the CPU is
+    me_fullpel_plain's map in 1/8 pel.  Planes of two shapes, a shape that
+    is not 64-aligned, or samples outside 0..(1 << bit_depth) - 1 raise
+    ValueError."""
+    from rav1e_tpu_torch.models.device_pipeline import (frame_me_map,
+                                                        me_fullpel_plain)
 
+    rng = np.random.default_rng(SEED + 10)
+    src = rng.integers(0, 1024, (64, 128)).astype(np.int32)
+    ref = np.roll(src, (2, -5), (0, 1))
+    got = frame_me_map(src, ref, 32, bit_depth=10, device="cpu")
+    want = me_fullpel_plain(torch.from_numpy(src), torch.from_numpy(ref),
+                            32).numpy() * 8
+    assert got.dtype == np.int32 and np.array_equal(got, want)
     a = np.zeros((64, 128), np.int32)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        frame_me_map(a, a, 32, bit_depth=10, device="cpu")
     with pytest.raises(ValueError, match="64-aligned"):
         frame_me_map(a, a[:, :64], 32, device="cpu")
     with pytest.raises(ValueError, match="64-aligned"):
         frame_me_map(a[:48], a[:48], 32, device="cpu")
     with pytest.raises(ValueError, match="0..255"):
         frame_me_map(a, a + 256, 32, device="cpu")
+    with pytest.raises(ValueError, match="0..1023"):
+        frame_me_map(a, a + 1024, 32, bit_depth=10, device="cpu")
 
 
 # -- the compound mode context ----------------------------------------------------------
