@@ -50,24 +50,25 @@
    plain versions on the path's largest calls, timed beside their bounds;
    re-derives sampled superblocks of every frame (inter blocks by mc_np
    from the reference's output recon) and INTER_FILTER_FRAMES inter frames
-   through deblock_np, cdef_np and lrf_np; a second encode must write the
-   same bytes, and gives the mixed GOP's frames/s and stage seconds.
+   through deblock_np, cdef_np and lrf_np; a second encode of the first
+   MIXED_TIMED frames must write the same bytes, and gives the mixed
+   GOP's frames/s and stage seconds.
 9. Drives the speed-5 path: bench.py's keyframe configuration at
    SpeedSettings.from_preset(5) (CFL in the pass, the host deblock level
    search, the CDEF search outside the chain, the SGR and per-unit Wiener
-   LR search), 8 frames, with the counts set to 0 before it: K1-K3, K5,
-   K6, K8 in frame mode and K11 cfl must launch, K4 deblock and K7
-   wiener_solve must not.  Holds K11 and K8's frame mode (stripes 64 and
+   LR search), SPEED5_FRAMES frames, with the counts set to 0 before it:
+   K1-K3, K5, K6, K8 in frame mode and K11 cfl must launch, K4 deblock and
+   K7 wiener_solve must not. Holds K11 and K8's frame mode (stripes 64 and
    32) against their plain versions, timed beside their bounds, and times
    the CDEF search outside the chain; re-derives sampled superblocks and
    FILTER_FRAMES frames through deblock_np, cdef_np and lrf_np / sgr_np
    with the coded parameters, and counts the restoration units by kind.
    Then CFL_FRAMES frames of content whose chroma follows its luma (the
    bench content seldom picks CFL): CFL must win blocks, and the
-   superblocks holding them re-derive.  A timed second encode of
-   KEY_TIMED frames must write the same bytes; a 320x240 key frame takes
-   the small-frame CDEF route (_cdef_search, cdef_frame_device); a GOP of
-   1 key + 3 inter frames at speed 5 takes the inter pass.
+   superblocks holding them re-derive. A timed second encode of KEY_TIMED
+   frames must write the same bytes; a 320x240 key frame takes the
+   small-frame CDEF route (_cdef_search, cdef_frame_device); a GOP of 1
+   key + 3 inter frames at speed 5 takes the inter pass.
 10. Drives the default configuration: EncoderConfig(width=1920,
    height=1080, quantizer=100, rdo_lookahead_frames=8), everything else
    at its defaults (low_latency=False: pyramid sub-GOPs of 4 with
@@ -110,6 +111,25 @@
    (16-bit samples; --save-stream writes DIR/hbd.ivf and
    DIR/hbd_recon.json); a second encode must write the same bytes, and
    gives the frames/s and stage seconds.
+12. Drives the speed-3 path: bench.py's keyframe configuration at
+   SpeedSettings.from_preset(3) (the pass's 8x8 level: each 16x16 leaf
+   raced against its four 8x8 leaves; then speed 5's host filter path),
+   SPEED3_FRAMES frames (frame 0's pass alone, then one batch of 3), with
+   the counts set to 0 before it, the encode timed (frames/s, stage
+   seconds).  K1-K3, K5, K6, K8's frame mode and K11 must launch, K4 and
+   K7 must not; every frame must choose 8x8 leaves.  Holds the largest
+   call of each shape the 8x8 level adds (K1 8x8 with the full channel
+   set and 4x4 non-directional, K2 and K3 over the 8x8 luma tx-type race
+   and the 4x4 uv race, K11 on 8x8 luma) against its plain version, timed
+   beside it,
+   its bound and, for K2, the torch.matmul transform; re-derives up to
+   SPLIT8_SAMPLES superblocks a frame holding 8x8 leaves (with
+   --save-stream, writes DIR/speed3.ivf and DIR/speed3_recon.json); times
+   the pass of one batched frame alone, which must write its batch
+   slot's records; and runs the CLI (`python -m rav1e_tpu_torch ... -s 3
+   --psnr --reconstruction`, its main() here) on a CLI_FRAMES-frame
+   CLI_SIZE clip: the key frame re-derives through the numpy filters onto
+   the written y4m, and the printed PSNR is frame_psnr's.
 
 The line before the last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero.
@@ -126,7 +146,12 @@ from pathlib import Path
 
 W, H, NFRAMES = 1920, 1080, 8
 MIXED_FRAMES = 16  # bench.py's mixed GOP: 1 key + 15 inter
-DEFAULT_FRAMES = 9  # EncoderConfig()'s pyramid: 1 key + two sub-GOPs of 4
+# depth cuts that keep the script inside its time limit (PERF.md section 4):
+MIXED_TIMED = 8  # frames of the mixed GOP's timed second encode
+SPEED5_FRAMES = 4  # key frames of the speed-5 path (phase 9)
+DEFAULT_FRAMES = 5  # EncoderConfig()'s pyramid: 1 key + one sub-GOP of 4
+#                     (the first ALTREF on the inter wavefront, 3 host
+#                     frames with LAST2 and compound references)
 DEFAULT_FILTER_FRAMES = 2  # host frames re-derived through the numpy filters
 CFL_FRAMES = 2  # speed-5 key frames of content whose chroma follows luma
 GOP5_FRAMES = 4  # the speed-5 GOP: 1 key + 3 inter
@@ -168,43 +193,15 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def encode(frames, check: bool, device: str = "cuda",
-           filters: bool = True, mixed: bool = False, speed: int = 6,
-           size=None, default: bool = False, bit_depth: int = 8):
-    """Encode `frames` through the public API on `device`, in bench.py's
-    keyframe configuration (filters=False: with CDEF and loop restoration
-    off), or with mixed in its mixed-GOP configuration (a key frame, then
-    inter frames), or with default at EncoderConfig()'s defaults
-    (low_latency=False: pyramid sub-GOPs, multiref, show_existing_frame
-    packets), at SpeedSettings.from_preset(speed), W x H (or size) and
-    bit_depth.  With check, keep each frame's pre-filter planes, output
-    recon and wavefront records; the encoders that took a wavefront are
-    returned in coding order, and every encoder in encode.all_fes."""
-    from rav1e_tpu_torch import Config, EncoderConfig, SpeedSettings
-    from rav1e_tpu_torch.api.context import EncoderError, EncoderStatus
+@contextlib.contextmanager
+def checked(check: bool = True):
+    """While open (and check is true), every frame encoder keeps its
+    pre-filter planes (_chk_prefilter), output recon (_chk_out) and
+    wavefront records (_chk_wf).  Yields (the encoders that took a
+    wavefront, every encoder), in coding order."""
     from rav1e_tpu_torch.models import inter_frame, intra_frame
     from rav1e_tpu_torch.ops import filter_chain
 
-    w, h = size or (W, H)
-    ss = SpeedSettings.from_preset(speed)
-    if not filters:
-        ss.cdef = False
-        ss.lrf = False
-    if default:
-        enc = EncoderConfig(width=w, height=h, quantizer=100,
-                            rdo_lookahead_frames=8, speed_settings=ss,
-                            bit_depth=bit_depth)
-    elif mixed:
-        enc = EncoderConfig(width=w, height=h, quantizer=100,
-                            max_key_frame_interval=240,
-                            rdo_lookahead_frames=8, low_latency=True,
-                            speed_settings=ss, bit_depth=bit_depth)
-    else:
-        enc = EncoderConfig(
-            width=w, height=h, quantizer=100, min_key_frame_interval=1,
-            max_key_frame_interval=1, rdo_lookahead_frames=8,
-            low_latency=True, speed_settings=ss, bit_depth=bit_depth)
-    cfg = Config(enc=enc, device=device)
     seen = []
     all_fes = []
     orig_splice = filter_chain._splice
@@ -247,6 +244,50 @@ def encode(frames, check: bool, device: str = "cuda",
         inter_frame.InterFrameEncoder._install_wavefront = install
         intra_frame.IntraFrameEncoder._finish_encode = finish
     try:
+        yield seen, all_fes
+    finally:
+        filter_chain._splice = orig_splice
+        intra_frame.IntraFrameEncoder._encode_tiles_wavefront = orig_tiles
+        inter_frame.InterFrameEncoder._install_wavefront = orig_install
+        intra_frame.IntraFrameEncoder._finish_encode = orig_finish
+
+
+def encode(frames, check: bool, device: str = "cuda",
+           filters: bool = True, mixed: bool = False, speed: int = 6,
+           size=None, default: bool = False, bit_depth: int = 8):
+    """Encode `frames` through the public API on `device`, in bench.py's
+    keyframe configuration (filters=False: with CDEF and loop restoration
+    off), or with mixed in its mixed-GOP configuration (a key frame, then
+    inter frames), or with default at EncoderConfig()'s defaults
+    (low_latency=False: pyramid sub-GOPs, multiref, show_existing_frame
+    packets), at SpeedSettings.from_preset(speed), W x H (or size) and
+    bit_depth.  With check, keep each frame's pre-filter planes, output
+    recon and wavefront records; the encoders that took a wavefront are
+    returned in coding order, and every encoder in encode.all_fes."""
+    from rav1e_tpu_torch import Config, EncoderConfig, SpeedSettings
+    from rav1e_tpu_torch.api.context import EncoderError, EncoderStatus
+
+    w, h = size or (W, H)
+    ss = SpeedSettings.from_preset(speed)
+    if not filters:
+        ss.cdef = False
+        ss.lrf = False
+    if default:
+        enc = EncoderConfig(width=w, height=h, quantizer=100,
+                            rdo_lookahead_frames=8, speed_settings=ss,
+                            bit_depth=bit_depth)
+    elif mixed:
+        enc = EncoderConfig(width=w, height=h, quantizer=100,
+                            max_key_frame_interval=240,
+                            rdo_lookahead_frames=8, low_latency=True,
+                            speed_settings=ss, bit_depth=bit_depth)
+    else:
+        enc = EncoderConfig(
+            width=w, height=h, quantizer=100, min_key_frame_interval=1,
+            max_key_frame_interval=1, rdo_lookahead_frames=8,
+            low_latency=True, speed_settings=ss, bit_depth=bit_depth)
+    cfg = Config(enc=enc, device=device)
+    with checked(check) as (seen, all_fes):
         ctx = cfg.new_context()
         pkts = []
 
@@ -265,11 +306,6 @@ def encode(frames, check: bool, device: str = "cuda",
             drain()
         ctx.flush()
         drain()
-    finally:
-        filter_chain._splice = orig_splice
-        intra_frame.IntraFrameEncoder._encode_tiles_wavefront = orig_tiles
-        inter_frame.InterFrameEncoder._install_wavefront = orig_install
-        intra_frame.IntraFrameEncoder._finish_encode = orig_finish
     if len(pkts) != len(frames) and not default:
         raise RuntimeError(f"{len(pkts)} packets for {len(frames)} frames")
     recon = [ctx._encoder.recon_by_input[i] for i in range(len(frames))]
@@ -485,6 +521,27 @@ WORK = {
 }
 
 
+# the kernels Capture(shapes=True) keys by shape, and the shapes the
+# speed-3 pass adds (phase 12): K1 at n = 8 with the full channel set (the
+# 8x8 luma leaf) and at n = 4 with the non-directional one (its chroma),
+# K2 and K3 over the 8x8 luma leaf's five tx types (a lane's blocks
+# (5, 8, 8)) and the 4x4 uv race (two planes of seven candidates,
+# (2, 7, 4, 4)), K11 on 8x8 luma
+SHAPED = ("intra_pred", "fwd_txq", "inv_txfm", "cfl")
+SPEED3_SHAPES = ("intra_pred_n8_full", "intra_pred_n4_nondir",
+                 "fwd_txq_n8_5", "fwd_txq_n4_2x7", "inv_txfm_n8_5",
+                 "inv_txfm_n4_2x7", "cfl_n8")
+
+
+def shape_key(key: str, a, k) -> str:
+    """key with the call's shape: n and K1's channel set, or the blocks a
+    lane holds (the dimensions between the lanes and the n x n block)."""
+    if key == "intra_pred":
+        return f"{key}_n{a[4]}_{'full' if a[5] else 'nondir'}"
+    lane = "x".join(str(d) for d in a[0].shape[1:-2])
+    return f"{key}_n{a[0].shape[-1]}" + (f"_{lane}" if lane else "")
+
+
 def bound_ms(nbytes, ops) -> float:
     return max(nbytes / PEAK_BYTES, ops / PEAK_FP32) * 1e3
 
@@ -496,14 +553,21 @@ class Capture:
     chain): the least time the card could take for the stage's kernel
     work.  For the functions named in `keep`, also every call's
     (arguments, keywords, result) in `every[name]`, for the parity of
-    each call against the plain version on the same card tensors."""
+    each call against the plain version on the same card tensors.  With
+    shapes, K1, K2, K3 and K11 are keyed by their call's shape as well
+    (shape_key), so that each shape keeps its own largest call; ncalls
+    counts the calls under each key."""
 
-    def __init__(self, keep=()):
+    def __init__(self, keep=(), shapes: bool = False):
+        from collections import Counter
+
         from rav1e_tpu_torch.models import device_pipeline
         from rav1e_tpu_torch.ops import (cdef, deblock, filter_chain, intra,
                                          lrf, mc, transforms)
 
         self.calls = {}
+        self.ncalls = Counter()
+        self.shapes = shapes
         self.bounds = {}
         self.every = {name: [] for name in keep}
         self.stage = "wavefront_pass"
@@ -584,6 +648,9 @@ class Capture:
             n = size(a, k)
             kk_ = key(a, k) if callable(key) else key
             b = bound_ms(*WORK[kk_ if kk_ in WORK else name](a, k))
+            if self.shapes and kk_ in SHAPED:
+                kk_ = shape_key(kk_, a, k)
+            self.ncalls[kk_] += 1
             self.bounds[self.stage] = self.bounds.get(self.stage, 0.0) + b
             if kk_ not in self.calls or n > self.calls[kk_][0]:
                 self.calls[kk_] = (n, tuple(clone(v) for v in a),
@@ -1234,14 +1301,14 @@ def mixed_gop(card: str) -> list:
     print(json.dumps({"mixed_output": summary, "bytes": sum(map(len, data)),
                       "check_s": time.perf_counter() - t1}))
     t2 = time.perf_counter()
-    data2, _, _ = encode(frames, check=False, mixed=True)
+    data2, _, _ = encode(frames[:MIXED_TIMED], check=False, mixed=True)
     torch.cuda.synchronize()
     t_enc = time.perf_counter() - t2
-    if data2 != data:
+    if data2 != data[:MIXED_TIMED]:
         raise RuntimeError("the second mixed-GOP encode wrote other bytes")
     print(json.dumps({"mixed_encode": {
-        "frames": MIXED_FRAMES, "size": f"{W}x{H}", "seconds": t_enc,
-        "fps": MIXED_FRAMES / t_enc, "stages_s": encode.stages,
+        "frames": MIXED_TIMED, "size": f"{W}x{H}", "seconds": t_enc,
+        "fps": MIXED_TIMED / t_enc, "stages_s": encode.stages,
         "card": card}}))
     return results
 
@@ -1416,7 +1483,7 @@ def speed5(card: str) -> list:
     from rav1e_tpu_torch import kernels
     from rav1e_tpu_torch.utils.content import make_frames, make_frames_cfl
 
-    frames = make_frames(W, H, NFRAMES)
+    frames = make_frames(W, H, SPEED5_FRAMES)
     cap = Capture()
     kernels.reset_counts()
     torch.cuda.synchronize()
@@ -1440,12 +1507,12 @@ def speed5(card: str) -> list:
     if ran:
         raise RuntimeError(f"kernels of the device chain launched on the "
                            f"speed-5 host filter path: {ran}")
-    if len(fes) != NFRAMES:
-        raise RuntimeError(f"{len(fes)} of {NFRAMES} frames took the "
+    if len(fes) != SPEED5_FRAMES:
+        raise RuntimeError(f"{len(fes)} of {SPEED5_FRAMES} frames took the "
                            "wavefront")
     print(json.dumps({"speed5_bound_ms_per_frame": {
-        k: v / NFRAMES for k, v in cap.bounds.items()}, "card": card}))
-    results = check_speed5_kernels(cap.calls, counts, NFRAMES)
+        k: v / SPEED5_FRAMES for k, v in cap.bounds.items()}, "card": card}))
+    results = check_speed5_kernels(cap.calls, counts, SPEED5_FRAMES)
     print(json.dumps({"speed5_cdef_route": time_cdef_route(cap.calls),
                       "card": card}))
     t1 = time.perf_counter()
@@ -2055,6 +2122,278 @@ def hbd_gop(card: str) -> list:
     return results
 
 
+# phase 12, speed 3: the keyframe pass with its 8x8 level (and CFL), then
+# the host filter path of speed 5
+# key frames: the Context runs frame 0's pass alone and batches frames
+# 1-3 (launch_wavefront_batch, F = 3)
+SPEED3_FRAMES = 4
+SPLIT8_SAMPLES = 8  # superblocks holding 8x8 leaves re-derived a frame
+CLI_SIZE, CLI_FRAMES = (320, 240), 2
+
+
+def rederive_split8(fes, limit: int = SPLIT8_SAMPLES) -> dict:
+    """Up to `limit` device superblocks a frame that hold 8x8 leaves
+    (seeded sample), re-derived from their records with the numpy oracles
+    onto the pre-filter recon (their 8x8 leaves' edges from the geometry's
+    avail8, recon_check._block_avail)."""
+    import numpy as np
+
+    from rav1e_tpu_torch.utils import recon_check
+
+    rng = np.random.default_rng(0)
+    sbs = leaves = 0
+    for fe in fes:
+        wf = fe._chk_wf
+        g = wf.geom
+        have = [(int(r), int(c)) for r, c in np.argwhere(g.device_sb)
+                if not wf.none64[g.sb_step[r, c], g.sb_lane[r, c]]
+                and (wf.split[g.sb_step[r, c], :, g.sb_lane[r, c], None]
+                     & wf.split16[g.sb_step[r, c], :, :,
+                                  g.sb_lane[r, c]]).any()]
+        for i in rng.choice(len(have), min(limit, len(have)), replace=False):
+            r, c = have[i]
+            if not recon_check.rederive_sb(wf, fe._chk_prefilter, r, c,
+                                           fe.dc_q, fe.ac_q):
+                raise RuntimeError(f"SB ({r}, {c}) with 8x8 leaves does not "
+                                   "re-derive")
+            sbs += 1
+            leaves += sum(b[2] == 8 for b in wf.sb_records(r, c))
+    return {"split8_sbs_rederived": sbs, "split8_leaves_in_them": leaves}
+
+
+def check_speed3_kernels(calls, ncalls, counts, frames_per_run):
+    """K1, K2, K3 and K11 on the largest call of each shape the speed-3
+    pass adds (SPEED3_SHAPES): identical to the plain version (K2 up to
+    its counted fp32 rounding ties), each timed beside its plain version,
+    its bound and, for K2, the torch.matmul forward transform.  `launches`
+    is the kernel's count on the phase's run, `shape_launches` its calls
+    at the shape.  Returns the kernels JSON list."""
+    import torch
+
+    from rav1e_tpu_torch.ops import intra, transforms as tt
+
+    out = []
+    entry = make_entry(out, counts, frames_per_run)
+    for key in SPEED3_SHAPES:
+        _, a, k = calls[key]
+        if key.startswith("intra_pred"):
+            above, left, ha, hl, n, full = a[:6]
+            err = _same(intra.intra_pred(*a), intra.intra_pred_plain(
+                above, left, ha, hl, n, full), key)
+            entry(key, "rav1e_tpu_torch/csrc/intra_pred.cu",
+                  "rav1e_tpu/ops/intra_jax.py:305" if full else
+                  "rav1e_tpu/models/wavefront.py:520", err,
+                  cuda_ms(lambda: intra.intra_pred(*a)),
+                  cuda_ms(lambda: intra.intra_pred_plain(above, left, ha, hl,
+                                                         n, full)),
+                  WORK["intra_pred"](a, {}))
+        elif key.startswith("fwd_txq"):
+            resid, Fv, FhT, qdc, qac, shift = a[:6]
+            qd = tt._as_blocks(qdc, resid)
+            qa = tt._as_blocks(qac, resid)
+            ti = tt._as_blocks(k["tidx"], resid)
+            err, _share = check_fwd_ties(
+                tt.fwd_txq(*a, **k),
+                tt.fwd_txq_plain(resid, Fv, FhT, ti, qd, qa, shift), a, k,
+                key)
+            Fv0, FhT0, xf = Fv[0], FhT[0], resid.float()
+            entry(key, "rav1e_tpu_torch/csrc/fwd_txq.cu",
+                  "rav1e_tpu/ops/transforms_jax.py:465", err,
+                  cuda_ms(lambda: tt.fwd_txq(*a, **k)),
+                  cuda_ms(lambda: tt.fwd_txq_plain(resid, Fv, FhT, ti, qd,
+                                                   qa, shift)),
+                  WORK["fwd_txq"](a, k),
+                  library_ms=cuda_ms(lambda: torch.matmul(
+                      Fv0, torch.matmul(xf, FhT0))))
+        elif key.startswith("inv_txfm"):
+            coeffs, tx = a[0], a[1]
+            if torch.is_tensor(tx):
+                types = tx.reshape(coeffs.shape[:-2])
+                plain = lambda: [(types == t, tt.inv_txfm_plain(
+                    coeffs[types == t], t))
+                    for t in torch.unique(types).tolist()]
+                ref = torch.empty_like(coeffs, dtype=torch.int32)
+                for sel, r in plain():
+                    ref[sel] = r
+            else:
+                plain = lambda: tt.inv_txfm_plain(coeffs, int(tx))
+                ref = plain()
+            err = _same(tt.inv_txfm(*a, **k), ref, key)
+            entry(key, "rav1e_tpu_torch/csrc/inv_txfm.cu",
+                  "rav1e_tpu/ops/transforms_jax.py:432", err,
+                  cuda_ms(lambda: tt.inv_txfm(*a, **k)), cuda_ms(plain),
+                  WORK["inv_txfm"](a, k))
+        else:
+            err = _same(intra.cfl(*a), intra.cfl_plain(*a), key)
+            entry(key, "rav1e_tpu_torch/csrc/cfl.cu",
+                  "rav1e_tpu/ops/intra_jax.py:317", err,
+                  cuda_ms(lambda: intra.cfl(*a)),
+                  cuda_ms(lambda: intra.cfl_plain(*a)), WORK["cfl"](a, {}))
+        lead = a[0].shape[:1] if key.startswith("intra_pred") else \
+            a[0].shape[:-2]
+        out[-1].update(shape_launches=ncalls[key],
+                       shape_launches_per_frame=ncalls[key] / frames_per_run,
+                       largest_call=list(lead) + [int(a[0].shape[-1])])
+    return out
+
+
+def serial_pass(fe, card: str) -> dict:
+    """The pass of one key frame of a batch alone (F = 1), launched anew
+    from its finished encoder (with the key frame's initial CDFs back, as
+    prepare sets them: its mode-bit tables come from them) and ended by a
+    synchronize: its seconds serialised.  Raises unless its records equal
+    the frame's slot of the batched pass."""
+    import numpy as np
+    import torch
+
+    from rav1e_tpu_torch.entropy.cdf import CdfContext
+    from rav1e_tpu_torch.models import wavefront
+
+    adapted, fe.cdf = fe.cdf, CdfContext(fe.q)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        launched = wavefront.launch_wavefront(fe, fe._tile_grid())
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        fe.cdf = adapted
+    res = launched.collect()
+    if not np.array_equal(res.packed, fe._chk_wf.packed):
+        raise RuntimeError("the pass of one frame alone wrote other records "
+                           "than its slot of the batched pass")
+    return {"serial_pass_s": secs, "steps": res.geom.steps,
+            "lanes": res.geom.width, "records_equal_batched": True,
+            "card": card}
+
+
+def cli_on_card(card: str, device: str = "cuda") -> dict:
+    """The port's CLI (`python -m rav1e_tpu_torch in.y4m -o out.ivf -s 3
+    --psnr --reconstruction rec.y4m`, its main() in this process) on
+    CLI_FRAMES frames of CLI_SIZE bench content at its defaults: the key
+    frame's device superblocks re-derive from its records, the numpy
+    filters over them give the written y4m's first frame, the stream
+    decodes to the y4m where libdav1d loads, and the PSNR it prints is
+    frame_psnr's of the y4m against the source."""
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from rav1e_tpu_torch.__main__ import main as cli_main
+    from rav1e_tpu_torch.models.intra_frame import IntraFrameEncoder
+    from rav1e_tpu_torch.obu.ivf import read_ivf
+    from rav1e_tpu_torch.utils import recon_check
+    from rav1e_tpu_torch.utils.content import make_frames
+    from rav1e_tpu_torch.utils.frame import (read_y4m, write_y4m_frame,
+                                             write_y4m_header)
+    from rav1e_tpu_torch.utils.metrics import frame_psnr
+
+    w, h = CLI_SIZE
+    frames = make_frames(w, h, CLI_FRAMES, seed=3)
+    with tempfile.TemporaryDirectory() as d:
+        src, ivf, rec = (str(Path(d) / n) for n in ("in.y4m", "out.ivf",
+                                                     "rec.y4m"))
+        with open(src, "wb") as fh:
+            write_y4m_header(fh, w, h)
+            for f in frames:
+                write_y4m_frame(fh, f)
+        err = io.StringIO()
+        t0 = time.perf_counter()
+        with checked() as (seen, all_fes), contextlib.redirect_stderr(err):
+            rc = cli_main([src, "-o", ivf, "-s", "3", "--psnr",
+                           "--reconstruction", rec, "--device", device])
+        secs = time.perf_counter() - t0
+        with open(rec, "rb") as fh:
+            recon = [[p.window().astype(np.int32) for p in f.planes]
+                     for f in read_y4m(fh)[1]]
+        with open(ivf, "rb") as fh:
+            data = [pkt for _pts, pkt in read_ivf(fh)]
+    keys = [fe for fe in seen if type(fe) is IntraFrameEncoder]
+    if rc != 0 or len(recon) != CLI_FRAMES or len(keys) != 1:
+        raise RuntimeError(f"the CLI returned {rc}, {len(recon)} frames, "
+                           f"{len(keys)} key frames on the wavefront")
+    key = keys[0]
+    wf = key._chk_wf
+    sbs = [(int(r), int(c)) for r, c in np.argwhere(wf.geom.device_sb)]
+    for r, c in sbs:
+        if not recon_check.rederive_sb(wf, key._chk_prefilter, r, c,
+                                       key.dc_q, key.ac_q):
+            raise RuntimeError(f"CLI key frame SB ({r}, {c}) does not "
+                               "re-derive")
+    if not recon_check.filters_match(key, key._chk_prefilter, recon[0]):
+        raise RuntimeError("the CLI's key frame: the numpy filters over its "
+                           "re-derived recon differ from the written y4m")
+    psnr = [frame_psnr(r, [p.window().astype(np.int32) for p in f.planes])
+            ["combined"] for r, f in zip(recon, frames)]
+    line = err.getvalue().strip().splitlines()[-1]
+    if f"PSNR avg {np.mean(psnr):.2f} dB" not in line:
+        raise RuntimeError(f"the CLI printed {line!r}, frame_psnr gives "
+                           f"{np.mean(psnr):.2f}")
+    return {"frames": CLI_FRAMES, "size": f"{w}x{h}", "seconds": secs,
+            "bytes": sum(map(len, data)), "cli_line": line,
+            "psnr_combined": psnr, "key_sbs_rederived": len(sbs),
+            "key_8x8_leaves": int(wf.split16_map.sum()) * 4,
+            "frames_on_wavefront": len(seen),
+            "dav1d": check_decode(data, recon), "card": card}
+
+
+def speed3(card: str) -> list:
+    """The speed-3 path (phase 12 of the module docstring).  Returns the
+    kernels JSON entries of the shapes its 8x8 level adds."""
+    import torch
+
+    from rav1e_tpu_torch import kernels
+    from rav1e_tpu_torch.utils.content import make_frames
+    from rav1e_tpu_torch.utils.stream_check import recon_digest
+
+    frames = make_frames(W, H, SPEED3_FRAMES)
+    cap = Capture(shapes=True)
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        data, recon, fes = encode(frames, check=True, speed=3)
+        torch.cuda.synchronize()
+    finally:
+        cap.restore()
+    t_enc = time.perf_counter() - t0
+    counts = dict(kernels.COUNTS)
+    leaves = [int(fe._chk_wf.split16_map.sum()) * 4 for fe in fes]
+    print(json.dumps({"speed3_path_launches": counts,
+                      "shape_calls": {k: cap.ncalls[k]
+                                      for k in SPEED3_SHAPES},
+                      "leaves_8x8_per_frame": leaves, "card": card}))
+    print(json.dumps({"speed3_encode": {
+        "frames": SPEED3_FRAMES, "size": f"{W}x{H}", "seconds": t_enc,
+        "fps": SPEED3_FRAMES / t_enc, "stages_s": encode.stages,
+        "card": card}}))
+    missing = [k for k in SPEED5_LAUNCHED if counts[k] == 0]
+    ran = [k for k in SPEED5_IDLE if counts[k]]
+    absent = [k for k in SPEED3_SHAPES if k not in cap.calls]
+    if missing or ran or absent:
+        raise RuntimeError(f"speed 3: not launched {missing}, launched off "
+                           f"the path {ran}, shapes not called {absent}")
+    if len(fes) != SPEED3_FRAMES or min(leaves) == 0:
+        raise RuntimeError(f"{len(fes)} of {SPEED3_FRAMES} frames took the "
+                           f"wavefront; 8x8 leaves a frame {leaves}")
+    print(json.dumps({"speed3_bound_ms_per_frame": {
+        k: v / SPEED3_FRAMES for k, v in cap.bounds.items()}, "card": card}))
+    shape_counts = {key: counts[key.split("_n")[0]] for key in SPEED3_SHAPES}
+    results = check_speed3_kernels(cap.calls, cap.ncalls, shape_counts,
+                                   SPEED3_FRAMES)
+    t1 = time.perf_counter()
+    digests = [recon_digest(r) for r in recon]
+    print(json.dumps({"speed3_output": {
+        "dav1d": check_decode(data, recon), **rederive_split8(fes),
+        "recon_sha256": digests}, "bytes": sum(map(len, data)),
+        "check_s": time.perf_counter() - t1}))
+    save_stream("speed3", data, {"recon_sha256": digests})
+    print(json.dumps({"speed3_serial_pass": serial_pass(fes[-1], card)}))
+    print(json.dumps({"speed3_cli": cli_on_card(card)}))
+    return results
+
+
 def main() -> int:
     try:
         import torch
@@ -2166,6 +2505,7 @@ def main() -> int:
     results += speed5(card)
     results += default_gop(card)
     results += hbd_gop(card)
+    results += speed3(card)
     print(json.dumps({"parity": {r["name"]: r["max_abs_err"]
                                  for r in results}}))
     if any(m == "jax" or m.startswith("jax.") or m == "rav1e_tpu"

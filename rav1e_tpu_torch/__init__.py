@@ -15,9 +15,12 @@ keeps its own copies of the host modules it needs.
 
 Ported so far: low-latency encodes (key frames, P frames from LAST) at the
 speed-6 defaults (CDEF search and apply, fused Wiener loop restoration),
-with either filter off, and at speed 5 (CFL in the wavefront pass, the
+with either filter off, at speed 5 (CFL in the wavefront pass, the
 host deblock level search, the CDEF search outside the device chain, the
-SGR and per-unit Wiener loop-restoration search); the default
+SGR and per-unit Wiener loop-restoration search) and at speeds 0-3 (the
+8x8 leaves of the wavefront pass, the host RD at 16 and the rectangular
+partitions below 320x240); the CLI (`python -m rav1e_tpu_torch in.y4m
+-o out.ivf -s 3`, on the card unless `--device cpu`); the default
 configuration (low_latency=False: pyramid, multi-reference and compound
 frames on the host inter path, its ME maps on the card); 4:2:0 frames of
 10 and 12 bits (the host walk over frame_rd_maps, the host inter path on
@@ -29,11 +32,11 @@ FrameEncoder still codes them as the JAX package does, for the parity
 tests.  4:2:2 and 4:4:4 frames encode
 through the same host paths (without CDEF, as in the JAX package) but
 are not yet held against it (ROADMAP queue 1 item 10b).  What raises
-NotImplementedError names its ROADMAP queue 1 item: 8x8 wavefront leaves
-(speed <= 3) and segmentation on inter wavefront frames: item 10; the
-loop-restoration decision from the device planes of a chain without its
-LR stage (lr_decide_device): item 10; tile-sharded and multi-GPU encodes
-(parallel/): item 11.
+NotImplementedError names its ROADMAP queue 1 item: segmentation on inter
+wavefront frames: item 10; the loop-restoration decision from the device
+planes of a chain without its LR stage (lr_decide_device): item 10;
+tile-sharded and multi-GPU encodes (parallel/): item 11; the CLI's
+--shard-dir (api/resume.py): item 13.
 
 Layout:
   api/      Config / Context / EncoderStatus public API

@@ -1,10 +1,10 @@
 """Wavefront device encode of key frames and P frames, in PyTorch on the GPU.
 
-Counterpart of rav1e_tpu/models/wavefront.py (no 8x8 split): the
-keyframe pass, with CFL at speed <= 5, and with inter_on the P-frame pass
-of single-LAST-reference frames.  rav1e walks superblocks serially
-because intra prediction consumes reconstructed neighbours and the entropy
-coder is adaptive.  Here the two concerns are split:
+Counterpart of rav1e_tpu/models/wavefront.py: the keyframe pass, with CFL
+at speed <= 5 and the 8x8 level at speed <= 3, and with inter_on the
+P-frame pass of single-LAST-reference frames.  rav1e walks superblocks
+serially because intra prediction consumes reconstructed neighbours and
+the entropy coder is adaptive.  Here the two concerns are split:
 
   1. DEVICE (this module): a loop over superblock wavefronts with slope 2
      (step k processes all SBs with 2*row + col == k, so the left / above /
@@ -14,7 +14,9 @@ coder is adaptive.  Here the two concerns are split:
      13-mode tx-domain RD race and the 5-type luma tx race (K2), CFL
      against DC (K11, K2, K3) and the uv race, bit-exact inverse
      transforms (K3) and in-carry reconstruction,
-     the NONE-vs-SPLIT decisions at 32 and 16 and the 64x64 root trial.
+     the NONE-vs-SPLIT decisions at 32 and 16 (with allow_split8 each 16
+     leaf also raced against its four 8x8 leaves) and the 64x64 root
+     trial.
      With inter_on, phase A runs before the scan: the full-pel motion
      search (K10), 8/8/6 motion vector candidates a block at the 64, 32
      and 16 levels, each raced through subpel MC (K9) and the forward
@@ -269,8 +271,9 @@ def rec_width(inter_on: bool) -> int:
 class WavefrontPass(torch.nn.Module):
     """The wavefront pass (counterpart of wavefront.py _make_pass): a loop
     over SB anti-diagonals, each step encoding a batch of lanes (one SB
-    each) through the 64x64 root trial, the 32x32 quadrants and their
-    16x16 leaves, with the recon carried in SB tiles.  With inter_on,
+    each) through the 64x64 root trial, the 32x32 quadrants, their 16x16
+    leaves and, with allow_split8, the 8x8 leaves of each 16x16, with the
+    recon carried in SB tiles.  With inter_on,
     phase A (_inter_phase) first decides every block's inter candidate at
     each level, and every leaf races its intra result against it.
 
@@ -284,14 +287,12 @@ class WavefrontPass(torch.nn.Module):
                  mode_mask, mi_cols, mi_rows, allow_split, allow_split8,
                  uv_search, allow_n64, inter_on, device="cuda"):
         super().__init__()
-        if allow_split8:
-            raise NotImplementedError(
-                "8x8 wavefront leaves (speed <= 3): ROADMAP queue 1 item 10")
         self.Hp, self.Wp, self.K, self.B, self.bd = Hp, Wp, K, B, bd
         self.R, self.C = Hp // 64, Wp // 64
         self.tx_search, self.fine_dir = tx_search, fine_dir
         self.cfl_on = cfl_on
         self.allow_split, self.uv_search = allow_split, uv_search
+        self.allow_split8 = allow_split8
         self.allow_n64 = allow_n64
         self.inter_on = inter_on
         self.fields = FIELDS + (MV_FIELDS if inter_on else ())
@@ -310,8 +311,9 @@ class WavefrontPass(torch.nn.Module):
                     torch.as_tensor(np.ascontiguousarray(FhT), device=dev))
 
         # (T, m, n) matrix stacks indexed by the keys of LUMA_TT/UV_CANDS
-        self.mats = {n: stack(n, (0,)) for n in (8, 16, 32)}
-        self.mats5 = {n: stack(n, range(5)) for n in (8, 16)}
+        # (n = 4: the chroma of an 8x8 leaf)
+        self.mats = {n: stack(n, (0,)) for n in (4, 8, 16, 32)}
+        self.mats5 = {n: stack(n, range(5)) for n in (4, 8, 16)}
         # TX_64X64 keeps only the top-left 32x32 coefficients (spec 7.13.3
         # zero rule); for the orthogonal DCT basis, truncating the forward
         # matrices to those rows/cols IS the least-squares fit
@@ -903,12 +905,13 @@ class WavefrontPass(torch.nn.Module):
         inter pass adds the band tail (wavefront.py:1382-1395): the ME map
         (R2, C2, 2) in 1/8 pel, then per level 64/32/16 the inter winners'
         costs (R, C[, 4[, 4]]) float32 and MVs (..., 2), as int16 MVs.
+        The geometry arrays are WavefrontGeometry's (avail8, the 8x8
+        leaves' availability, is read with allow_split8).
 
         The inter pass's upload continues after the keyframe parameters
         with the per-32 lambda/dc_q/ac_q grids (R*C*4 each, quadrant
         order) and then the edge-padded reference Y, U, V bytes
         (_inter_upload)."""
-        del avail8  # 8x8 leaves are off in this pass
         Hp, Wp, K, B, R, C = self.Hp, self.Wp, self.K, self.B, self.R, self.C
         nY = Hp * Wp
         nC = (Hp >> 1) * (Wp >> 1)
@@ -928,6 +931,7 @@ class WavefrontPass(torch.nn.Module):
         qac_q = params[o : o + KB4].reshape(K, B, 4).to(torch.int32)
         o += KB4
         part_bits = params[o : o + 2]
+        part_bits16 = params[o + 2 : o + 4]
         part_bits64 = params[o + 4 : o + 6]
         o += 6
         bits_uv14 = params[o : o + 182].reshape(13, 14)
@@ -972,8 +976,9 @@ class WavefrontPass(torch.nn.Module):
                     av_k[:, 0, 0, 1] > 0, lam_k[:, 0], qdc_k[:, 0],
                     qac_k[:, 0], inter=lane(i64) if self.inter_on else None)
             quads = [self._quad(qi, ctxY, ctxU, ctxV, sYt, sUt, sVt,
-                                av_k[:, qi], lam_k[:, qi], qdc_k[:, qi],
-                                qac_k[:, qi], allow_k, tabs, part_bits,
+                                av_k[:, qi], avail8[k][:, qi], lam_k[:, qi],
+                                qdc_k[:, qi], qac_k[:, qi], allow_k, tabs,
+                                part_bits, part_bits16,
                                 lane(i32, qi) if self.inter_on else None,
                                 [lane(i16, qi, si) for si in range(4)]
                                 if self.inter_on else None)
@@ -1008,33 +1013,38 @@ class WavefrontPass(torch.nn.Module):
                 mv(i32), i16["cost"], mv(i16))
         return packed, recY, recU, recV, tail
 
-    def _quad(self, qi, ctxY, ctxU, ctxV, sYt, sUt, sVt, av_q, lam, qdc, qac,
-              allow_k, tabs, part_bits, inter32=None, inter16=None):
+    def _quad(self, qi, ctxY, ctxU, ctxV, sYt, sUt, sVt, av_q, av8_q, lam,
+              qdc, qac, allow_k, tabs, part_bits, part_bits16, inter32=None,
+              inter16=None):
         """One 32x32 quadrant: the 32 leaf, then the chain of four 16
-        leaves from the same context, NONE vs SPLIT, and the winner's recon
-        written into the contexts (in place).  inter32 / inter16: the
-        lanes' inter winners of the quadrant and of its four 16 blocks."""
+        leaves from the same context (with allow_split8 each 16 leaf
+        raced against its four 8x8 leaves, _sixteen), NONE vs SPLIT, and
+        the winner's recon written into the contexts (in place).  av8_q:
+        (B, 4, 4, 4) availability of the quadrant's 8x8 leaves.
+        inter32 / inter16: the lanes' inter winners of the quadrant and
+        of its four 16 blocks."""
         qy, qx = _QOFF[qi]
         r32, out32, lv32, cost32 = self.encode_leaf(
             ctxY, ctxU, ctxV, sYt, sUt, sVt, qy, qx, 32, av_q[:, 0], lam,
             qdc, qac, allow_k, tabs, inter32)
-        outs16, lvs16 = [], []
+        split8s, outs16, outs8, lvs16 = [], [], [], []
         c16sum = torch.zeros_like(cost32)
         for si in range(4):
             ly, lx = qy + _SOFF[si][0], qx + _SOFF[si][1]
-            r16, out16, lv16, c16 = self.encode_leaf(
-                ctxY, ctxU, ctxV, sYt, sUt, sVt, ly, lx, 16, av_q[:, 1 + si],
-                lam, qdc, qac, allow_k, tabs,
+            s8, out16, o8, lv16, c16 = self._sixteen(
+                ctxY, ctxU, ctxV, sYt, sUt, sVt, ly, lx, av_q[:, 1 + si],
+                av8_q[:, si], lam, qdc, qac, allow_k, tabs, part_bits16,
                 inter16[si] if inter16 is not None else None)
-            ctxY[:, 1 + ly : 17 + ly, 1 + lx : 17 + lx] = r16[0]
-            ctxU[:, 1 + (ly >> 1) : 9 + (ly >> 1), 1 + (lx >> 1) : 9 + (lx >> 1)] = r16[1]
-            ctxV[:, 1 + (ly >> 1) : 9 + (ly >> 1), 1 + (lx >> 1) : 9 + (lx >> 1)] = r16[2]
+            split8s.append(s8)
             outs16.append(out16)
+            outs8.append(o8)
             lvs16.append(lv16)
             c16sum = c16sum + c16
         cost_none = cost32 + lam * part_bits[0]
-        # four NONE symbols of the 16 leaves approximated at 2 bits each
-        cost_split = c16sum + lam * (part_bits[1] + 4 * 2.0)
+        # with the 8x8 level each 16 cost already carries its own
+        # partition bits; else four NONE symbols at 2 bits each
+        cost_split = c16sum + lam * (
+            part_bits[1] + (0.0 if self.allow_split8 else 4 * 2.0))
         split = cost_split < cost_none
         if not self.allow_split:  # rdo_partition off
             split = torch.zeros_like(split)
@@ -1048,8 +1058,58 @@ class WavefrontPass(torch.nn.Module):
         s2 = split[:, None]
         lvm = [torch.where(s2, torch.stack([l[p] for l in lvs16], 1).reshape(Bn, -1),
                            lv32[p].reshape(Bn, -1)) for p in range(3)]
-        return dict(split=split, out32=out32, outs16=outs16, lv=lvm,
+        return dict(split=split, out32=out32, outs16=outs16, split8=split8s,
+                    outs8=outs8, lv=lvm,
                     cost=torch.minimum(cost_none, cost_split))
+
+    def _sixteen(self, ctxY, ctxU, ctxV, sYt, sUt, sVt, ly, lx, av16, av8,
+                 lam, qdc, qac, allow_k, tabs, part_bits16, inter16):
+        """One 16x16 leaf at (ly, lx), and with allow_split8 its NONE vs
+        SPLIT race against four 8x8 leaves (wavefront.py:1153-1228).  Both
+        sides predict from the same pre-leaf context: the 16 leaf's recon
+        is held back while the 8-chain writes its leaves into the contexts
+        one by one (each reads the ones before it), then the 16x16 luma
+        and 8x8 chroma region keeps the winner's.  Returns (split8 (B,),
+        the 16 leaf's fields, the four 8x8 leaves' fields (both None
+        without allow_split8: _pack_step writes zeros), the chosen levels
+        (B, 256), (B, 64), (B, 64) in leaf z-order, the chosen cost)."""
+        r16, out16, lv16, c16 = self.encode_leaf(
+            ctxY, ctxU, ctxV, sYt, sUt, sVt, ly, lx, 16, av16, lam, qdc, qac,
+            allow_k, tabs, inter16)
+        Bn = c16.shape[0]
+        ys, xs = slice(1 + ly, 17 + ly), slice(1 + lx, 17 + lx)
+        ys2, xs2 = slice(1 + (ly >> 1), 9 + (ly >> 1)), slice(1 + (lx >> 1), 9 + (lx >> 1))
+        if not self.allow_split8:
+            ctxY[:, ys, xs] = r16[0]
+            ctxU[:, ys2, xs2] = r16[1]
+            ctxV[:, ys2, xs2] = r16[2]
+            return (None, out16, None, tuple(v.reshape(Bn, -1) for v in lv16),
+                    c16)
+        outs8, lvs8 = [], []
+        c8sum = torch.zeros_like(c16)
+        for ei in range(4):
+            ey, ex = ly + _SOFF8[ei][0], lx + _SOFF8[ei][1]
+            r8, out8, lv8, c8 = self.encode_leaf(
+                ctxY, ctxU, ctxV, sYt, sUt, sVt, ey, ex, 8, av8[:, ei], lam,
+                qdc, qac, allow_k, tabs)
+            ctxY[:, 1 + ey : 9 + ey, 1 + ex : 9 + ex] = r8[0]
+            ctxU[:, 1 + (ey >> 1) : 5 + (ey >> 1), 1 + (ex >> 1) : 5 + (ex >> 1)] = r8[1]
+            ctxV[:, 1 + (ey >> 1) : 5 + (ey >> 1), 1 + (ex >> 1) : 5 + (ex >> 1)] = r8[2]
+            outs8.append(out8)
+            lvs8.append(lv8)
+            c8sum = c8sum + c8
+        cost_n = c16 + lam * part_bits16[0]
+        cost_s = c8sum + lam * part_bits16[1]
+        split8 = cost_s < cost_n
+        s3 = split8[:, None, None]
+        ctxY[:, ys, xs] = torch.where(s3, ctxY[:, ys, xs], r16[0])
+        ctxU[:, ys2, xs2] = torch.where(s3, ctxU[:, ys2, xs2], r16[1])
+        ctxV[:, ys2, xs2] = torch.where(s3, ctxV[:, ys2, xs2], r16[2])
+        s2 = split8[:, None]
+        lvm = tuple(torch.where(s2, torch.stack([l[p] for l in lvs8],
+                                                1).reshape(Bn, -1),
+                                lv16[p].reshape(Bn, -1)) for p in range(3))
+        return split8, out16, outs8, lvm, torch.minimum(cost_n, cost_s)
 
     def _pack_step(self, quads, pick64, r64):
         """One step's records: (4, B, rec_width(inter_on)) int16 (layout
@@ -1062,8 +1122,16 @@ class WavefrontPass(torch.nn.Module):
         m32 = torch.stack([fld(qd["out32"]) for qd in quads], 0)  # (4, B, nf)
         m16 = torch.stack([torch.stack([fld(o) for o in qd["outs16"]], 1)
                            for qd in quads], 0).reshape(4, Bn, 4 * nf)
-        s16 = torch.zeros((4, Bn, 4), dtype=torch.int32, device=dev)
-        m8 = torch.zeros((4, Bn, 16 * nf), dtype=torch.int32, device=dev)
+        if self.allow_split8:
+            s16 = torch.stack([torch.stack(qd["split8"], 1) for qd in quads],
+                              0).to(torch.int32)  # (4, B, 4)
+            # (quad, B, 16-leaf, 8-leaf, field), as wavefront.py:1350-1351
+            m8 = torch.stack([torch.stack([torch.stack([fld(o) for o in o8], 1)
+                                           for o8 in qd["outs8"]], 1)
+                              for qd in quads], 0).reshape(4, Bn, 16 * nf)
+        else:
+            s16 = torch.zeros((4, Bn, 4), dtype=torch.int32, device=dev)
+            m8 = torch.zeros((4, Bn, 16 * nf), dtype=torch.int32, device=dev)
         split_f = torch.stack([qd["split"] for qd in quads], 0).to(torch.int32)
         lv = [torch.stack([qd["lv"][p] for qd in quads], 0) for p in range(3)]
         if pick64 is not None:

@@ -237,8 +237,8 @@ def cfl_plain(luma: torch.Tensor, dc: torch.Tensor, src: torch.Tensor,
 
 def cfl(luma: torch.Tensor, dc: torch.Tensor, src: torch.Tensor,
         bd: int = 8):
-    """CFL fit and prediction of B blocks of n x n luma (n in 16, 32) and
-    their U and V (K11); see cfl_plain."""
+    """CFL fit and prediction of B blocks of n x n luma (n in 8, 16, 32)
+    and their U and V (K11); see cfl_plain."""
     if luma.device.type == "cpu":
         return cfl_plain(luma, dc, src, bd)
     B, n, _ = luma.shape

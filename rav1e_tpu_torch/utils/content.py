@@ -8,6 +8,9 @@ Above 8 bits each sample is the 8-bit one shifted left by bit_depth - 8,
 with its low bits drawn from the same generator.
 make_planes_cfl: smooth luma waves drifting 3 px a frame with +-2 noise,
 and U and V linear in the 2x2-averaged luma, the content CFL is for.
+make_planes_split8: make_planes with the luma of the left half of the
+frame in flat 8x8 patches of random levels, which an 8x8 partition codes
+far more cheaply than a 16x16 one.
 Deterministic, so two encoders (or two runs) fed them see the same
 pixels.
 """
@@ -70,3 +73,23 @@ def make_planes_cfl(w: int, h: int, n: int, seed: int = 1) -> list:
 def make_frames_cfl(w: int, h: int, n: int, seed: int = 1) -> list:
     """n Frames of make_planes_cfl content."""
     return [Frame.from_planes(*p) for p in make_planes_cfl(w, h, n, seed)]
+
+
+def make_planes_split8(w: int, h: int, n: int, seed: int = 2) -> list:
+    """n frames of make_planes content (uint8 4:2:0) whose luma in the
+    columns [0, w/2) is flat 8x8 patches of random levels instead."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for y, u, v in make_planes(w, h, n, seed):
+        pw = -(-(w // 2) // 8)
+        lv = rng.integers(0, 256, (-(-h // 8), pw))
+        patch = np.repeat(np.repeat(lv, 8, 0), 8, 1)[:h, : w // 2]
+        y = y.copy()
+        y[:, : w // 2] = patch.astype(np.uint8)
+        out.append((y, u, v))
+    return out
+
+
+def make_frames_split8(w: int, h: int, n: int, seed: int = 2) -> list:
+    """n Frames of make_planes_split8 content."""
+    return [Frame.from_planes(*p) for p in make_planes_split8(w, h, n, seed)]

@@ -38,19 +38,23 @@ _UV_TX = {0: tn.DCT_DCT, 1: tn.ADST_DCT, 2: tn.DCT_ADST, 9: tn.ADST_ADST,
 UV_CFL = 13
 _QOFF = ((0, 0), (0, 32), (32, 0), (32, 32))
 _SOFF = ((0, 0), (0, 16), (16, 0), (16, 16))
+_SOFF8 = ((0, 0), (0, 8), (8, 0), (8, 8))
 
 
 def _block_avail(geom, r, c):
-    """(x, y, size) -> (n_top_right, n_bottom_left) of a device SB's 32 and
-    16 blocks (the 64x64 root block uses none)."""
+    """(x, y, size) -> (n_top_right, n_bottom_left) of a device SB's 32,
+    16 and 8 blocks (the 64x64 root block uses none)."""
     k, li = geom.sb_step[r, c], geom.sb_lane[r, c]
     out = {}
     for q in range(4):
         qy, qx = r * 64 + _QOFF[q][0], c * 64 + _QOFF[q][1]
         out[(qx, qy, 32)] = tuple(geom.avail[k, li, q, 0, 2:4])
         for s in range(4):
-            out[(qx + _SOFF[s][1], qy + _SOFF[s][0], 16)] = tuple(
-                geom.avail[k, li, q, 1 + s, 2:4])
+            sy, sx = qy + _SOFF[s][0], qx + _SOFF[s][1]
+            out[(sx, sy, 16)] = tuple(geom.avail[k, li, q, 1 + s, 2:4])
+            for e in range(4):
+                out[(sx + _SOFF8[e][1], sy + _SOFF8[e][0], 8)] = tuple(
+                    geom.avail8[k, li, q, s, e, 2:4])
     return out
 
 

@@ -3,9 +3,9 @@
 The card's machine has no libdav1d, so `chip_smoke.py --save-stream DIR`
 writes its default-configuration stream as DIR/default.ivf and the
 SHA-256 of each displayed frame's recon as DIR/default_recon.json (and
-likewise its 1080p key-frame stream as DIR/key.ivf and its 10-bit stream
-as DIR/hbd.ivf).  On a machine
-with libdav1d:
+likewise its 1080p key-frame stream as DIR/key.ivf, its 10-bit stream
+as DIR/hbd.ivf and its speed-3 key frames as DIR/speed3.ivf).  On a
+machine with libdav1d:
 
     python -m rav1e_tpu_torch.utils.stream_check DIR/default.ivf \\
         DIR/default_recon.json

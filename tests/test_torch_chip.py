@@ -5,6 +5,7 @@ rav1e_tpu_torch/csrc, launches it on CUDA tensors and holds the result
 against the plain version on the same inputs (identical for intra_pred,
 inv_txfm, deblock, cdef_dir, cdef_filter, wiener_solve, wiener_lr, also
 in frame mode, mc_pred, me_fullpel, also through frame_me_map, and cfl,
+the four of the leaves also at the speed-3 pass's 8x8 and 4x4 shapes,
 and above 8 bits cdef_dir, cdef_filter, wiener_lr in frame mode and
 me_fullpel on uint16 planes; frame_rd_maps by its tie rule;
 fwd_txq, with and without the inter race's thinning, within its
@@ -39,7 +40,7 @@ def _edges(rng, B, n, dev):
 
 
 @pytest.mark.parametrize("n,full", [(16, True), (32, True), (8, False),
-                                    (64, False)])
+                                    (64, False), (8, True), (4, False)])
 def test_intra_pred_kernel(n, full):
     from rav1e_tpu_torch import kernels
     from rav1e_tpu_torch.ops import intra
@@ -53,7 +54,7 @@ def test_intra_pred_kernel(n, full):
     assert torch.equal(got, ref)
 
 
-@pytest.mark.parametrize("n", [8, 16, 32, 64])
+@pytest.mark.parametrize("n", [4, 8, 16, 32, 64])
 def test_fwd_txq_kernel(n):
     from rav1e_tpu_torch.ops import transforms as tt
     from rav1e_tpu_torch.ops import transforms_np as tn
@@ -73,7 +74,7 @@ def test_fwd_txq_kernel(n):
     qac = torch.full((B,), 140, dtype=torch.int32, device=dev)
     tidx = torch.as_tensor(rng.integers(0, len(types), B), device=dev,
                            dtype=torch.int32)
-    shift = {8: 0, 16: 0, 32: 1, 64: 2}[n]
+    shift = {4: 0, 8: 0, 16: 0, 32: 1, 64: 2}[n]
     lv, dq, dist, rate = tt.fwd_txq(resid, Fv, FhT, qdc, qac, shift,
                                     tidx=tidx)
     rl, rdq, rdist, rrate = tt.fwd_txq_plain(resid, Fv, FhT, tidx, qdc, qac,
@@ -91,7 +92,7 @@ def test_fwd_txq_kernel(n):
 
 
 @pytest.mark.parametrize("n,tx", [(8, 0), (8, 3), (16, 1), (16, 2), (16, 9),
-                                  (32, 0), (64, 0)])
+                                  (32, 0), (64, 0), (4, 0), (4, 3), (4, 9)])
 def test_inv_txfm_kernel(n, tx):
     from rav1e_tpu_torch.ops import transforms as tt
 
@@ -392,16 +393,19 @@ def test_mixed_gop_on_card_conforms(monkeypatch):
     kernels.reset_counts()
     data, recon, fes = chip_smoke.encode(make_frames(320, 240, 3), check=True,
                                          mixed=True)
-    # every counter but the speed-5 path's own (cfl, K8's frame mode)
+    # every counter but the speed-5 path's own (cfl, K8's frame mode), the
+    # host inter path's (frame_me_map) and the host key walk's
+    # (frame_rd_maps), as chip_smoke.py's mixed-GOP phase counts them
     assert all(v > 0 for k, v in kernels.COUNTS.items()
-               if k not in ("cfl", "wiener_lr_frame")), kernels.COUNTS
+               if k not in ("cfl", "wiener_lr_frame", "me_fullpel_frame",
+                            "frame_rd_maps")), kernels.COUNTS
     assert [fe._chk_wf.has_mv for fe in fes] == [False, True, True]
     summary = chip_smoke.check_output(data, recon, fes, 2)
     assert summary["sbs_rederived_with_inter_blocks"] > 0
     assert summary["filter_chain_np_frames"] == 2
 
 
-@pytest.mark.parametrize("n", [16, 32])
+@pytest.mark.parametrize("n", [8, 16, 32])
 def test_cfl_kernel(n):
     from rav1e_tpu_torch import kernels
     from rav1e_tpu_torch.ops import intra
@@ -470,6 +474,34 @@ def test_speed5_on_card_conforms(monkeypatch):
     summary = chip_smoke.check_output(data, recon, fes, 2)
     assert summary["filter_chain_np_frames"] == 2
     assert chip_smoke.rederive_cfl(fes)["cfl_sbs_rederived"] > 0
+
+
+def test_speed3_on_card_conforms():
+    """A 320x240 preset-3 key frame (flat 8x8 patches on its left half) on
+    the card: the pass runs its 8x8 level (K1, K2, K3 and K11 at the 8x8
+    and 4x4 shapes among their calls), the host deblock search leaves K4
+    and K7 idle, 8x8 leaves are chosen, and the superblocks holding them
+    re-derive with the numpy oracles."""
+    import chip_smoke
+    from rav1e_tpu_torch import kernels
+    from rav1e_tpu_torch.utils.content import make_frames_split8
+
+    _card()
+    kernels.reset_counts()
+    cap = chip_smoke.Capture(shapes=True)
+    try:
+        data, recon, fes = chip_smoke.encode(make_frames_split8(320, 240, 1),
+                                             check=True, speed=3,
+                                             size=(320, 240))
+    finally:
+        cap.restore()
+    counts = dict(kernels.COUNTS)
+    assert all(counts[k] > 0 for k in chip_smoke.SPEED5_LAUNCHED), counts
+    assert counts["deblock"] == counts["wiener_solve"] == 0, counts
+    assert all(k in cap.calls for k in chip_smoke.SPEED3_SHAPES), cap.calls
+    assert fes[0]._chk_wf.split16_map.any()
+    chip_smoke.check_output(data, recon, fes, 0)
+    assert chip_smoke.rederive_split8(fes)["split8_sbs_rederived"] > 0
 
 
 def test_frame_me_map_on_card(monkeypatch):

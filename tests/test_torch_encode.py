@@ -408,13 +408,14 @@ def test_config_needs_a_card_unless_cpu():
 
 
 def test_port_imports_no_jax():
-    """Importing the port and encoding a 64x64 key frame, then a 320x240
-    key frame and an inter frame (the inter wavefront path), loads neither
-    jax nor any module of the JAX package (a fresh interpreter: this test
-    process has JAX loaded already)."""
+    """Importing the port (its CLI and metrics too) and encoding a 64x64
+    key frame, then a 320x240 key frame and an inter frame (the inter
+    wavefront path), loads neither jax nor any module of the JAX package
+    (a fresh interpreter: this test process has JAX loaded already)."""
     code = (
         "import sys\n"
         "from rav1e_tpu_torch import Config, EncoderConfig, SpeedSettings\n"
+        "import rav1e_tpu_torch.__main__, rav1e_tpu_torch.utils.metrics\n"
         "from rav1e_tpu_torch.utils.content import make_frames\n"
         "ss = SpeedSettings.from_preset(6)\n"
         "ss.cdef = ss.lrf = False\n"

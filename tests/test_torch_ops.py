@@ -87,11 +87,11 @@ def _jax_stack(above, left, n, ha, hl):
     return _jax_stack_n(above, left, ha, hl)
 
 
-@pytest.mark.parametrize("n", [16, 32])
+@pytest.mark.parametrize("n", [8, 16, 32])
 def test_intra_full_set_matches_jax(n):
     """DC, the 56 directional variants and SMOOTH*/PAETH (the luma leaf's
-    channel set) equal dc_predict, predict_dirs and the stack's
-    non-directional predictions."""
+    channel set; n = 8 the 8x8 leaf at speed <= 3) equal dc_predict,
+    predict_dirs and the stack's non-directional predictions."""
     rng = np.random.default_rng(SEED + n)
     above, left, ha, hl = _edges(rng, 5, n)
     got = ti.intra_pred(_t(above), _t(left), _t(ha), _t(hl), n, True).numpy()
@@ -103,10 +103,10 @@ def test_intra_full_set_matches_jax(n):
     assert np.array_equal(got[:, 57:61], stack[:, 9:13])
 
 
-@pytest.mark.parametrize("n", [8, 16, 32, 64])
+@pytest.mark.parametrize("n", [4, 8, 16, 32, 64])
 def test_intra_nondir_set_matches_jax(n):
     """DC, V, H, SMOOTH*, PAETH (the chroma race and the 64x64 root
-    trial's channel set)."""
+    trial's channel set; n = 4 the chroma of an 8x8 leaf)."""
     rng = np.random.default_rng(SEED + 100 + n)
     above, left, ha, hl = _edges(rng, 4, n)
     got = ti.intra_pred(_t(above), _t(left), _t(ha), _t(hl), n, False).numpy()

@@ -99,7 +99,7 @@ def _quotients(luma, dc, src):
 
 
 @pytest.mark.parametrize("kind", ["random", "flat", "clip"])
-@pytest.mark.parametrize("n", [16, 32])
+@pytest.mark.parametrize("n", [8, 16, 32])
 def test_cfl_plain_matches_jax(n, kind):
     """K11's plain version against cfl_ac_420_batch, the JAX alpha fit
     and cfl_predict_batch: alphas equal except where the JAX f32 sums can
