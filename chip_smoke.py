@@ -130,6 +130,25 @@
    --psnr --reconstruction`, its main() here) on a CLI_FRAMES-frame
    CLI_SIZE clip: the key frame re-derives through the numpy filters onto
    the written y4m, and the printed PSNR is frame_psnr's.
+13. Drives the tile route: TILE_FRAMES key frames of 2560x1600 (WQXGA,
+   40 x 25 superblocks) in bench.py's keyframe configuration with
+   tile_cols=4, tune="psnr" (ROADMAP F8) and Config(threads=4), with the
+   counts set to 0 before it.
+   Every frame must take the tile route (the pass over the 4 tile
+   columns' stacked lanes, parallel/tiles.py: `wavefront_tiles` counts
+   each), K1-K3 and the host filter path's K5 and K6 must launch, K4, K7
+   and K8's chain mode must not (the route has no device-resident recon).
+   The same frames at threads=0 (the single-device pass) must give the
+   same bytes, recon and per-superblock records.  Holds the route's
+   largest K1, K2 and K3 calls against their plain versions, timed beside
+   their bounds; re-derives TILE_EDGE_SAMPLES superblock rows on both
+   sides of each tile boundary and frame 0 through deblock_np, cdef_np
+   and lrf_np (with --save-stream, writes DIR/tiles.ivf and
+   DIR/tiles_recon.json); times one frame's pass alone on each route
+   (58 steps of 20 lanes against 88 of 20); and runs the CLI with
+   --shard-dir on a RESUME_FRAMES-frame RESUME_SIZE clip with key frame
+   interval 1, stopped after one segment and resumed: its stream must
+   equal an uninterrupted run's.
 
 The line before the last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero.
@@ -254,16 +273,20 @@ def checked(check: bool = True):
 
 def encode(frames, check: bool, device: str = "cuda",
            filters: bool = True, mixed: bool = False, speed: int = 6,
-           size=None, default: bool = False, bit_depth: int = 8):
+           size=None, default: bool = False, bit_depth: int = 8,
+           tile_cols: int = 0, threads: int = 0, tune=None):
     """Encode `frames` through the public API on `device`, in bench.py's
     keyframe configuration (filters=False: with CDEF and loop restoration
     off), or with mixed in its mixed-GOP configuration (a key frame, then
     inter frames), or with default at EncoderConfig()'s defaults
     (low_latency=False: pyramid sub-GOPs, multiref, show_existing_frame
     packets), at SpeedSettings.from_preset(speed), W x H (or size) and
-    bit_depth.  With check, keep each frame's pre-filter planes, output
-    recon and wavefront records; the encoders that took a wavefront are
-    returned in coding order, and every encoder in encode.all_fes."""
+    bit_depth, with tile_cols tile columns and Config(threads=threads)
+    (threads > 1 and tile_cols > 1: the key frames' tile route) and, if
+    given, tune (EncoderConfig's own default otherwise).  With
+    check, keep each frame's pre-filter planes, output recon and wavefront
+    records; the encoders that took a wavefront are returned in coding
+    order, and every encoder in encode.all_fes."""
     from rav1e_tpu_torch import Config, EncoderConfig, SpeedSettings
     from rav1e_tpu_torch.api.context import EncoderError, EncoderStatus
 
@@ -286,7 +309,10 @@ def encode(frames, check: bool, device: str = "cuda",
             width=w, height=h, quantizer=100, min_key_frame_interval=1,
             max_key_frame_interval=1, rdo_lookahead_frames=8,
             low_latency=True, speed_settings=ss, bit_depth=bit_depth)
-    cfg = Config(enc=enc, device=device)
+    enc.tile_cols = tile_cols
+    if tune is not None:
+        enc.tune = tune
+    cfg = Config(enc=enc, device=device, threads=threads)
     with checked(check) as (seen, all_fes):
         ctx = cfg.new_context()
         pkts = []
@@ -313,6 +339,7 @@ def encode(frames, check: bool, device: str = "cuda",
     encode.mode_counts = dict(ctx._encoder.stats.mode_counts)
     encode.cfl_blocks = ctx._encoder.stats.cfl_blocks
     encode.frame_types = [p.frame_type for p in pkts]
+    encode.key_routes = dict(ctx._encoder.stats.key_routes)
     encode.all_fes = all_fes
     return [p.data for p in pkts], recon, seen
 
@@ -561,7 +588,7 @@ class Capture:
     def __init__(self, keep=(), shapes: bool = False):
         from collections import Counter
 
-        from rav1e_tpu_torch.models import device_pipeline
+        from rav1e_tpu_torch.models import device_pipeline, wavefront
         from rav1e_tpu_torch.ops import (cdef, deblock, filter_chain, intra,
                                          lrf, mc, transforms)
 
@@ -582,7 +609,9 @@ class Capture:
                 # the host inter path's ME maps (K10)
                 (device_pipeline, "frame_me_map", "me_maps"),
                 # the host walk's RD maps above 8 bits (K1, K2)
-                (device_pipeline, "frame_rd_maps", "rd_maps")):
+                (device_pipeline, "frame_rd_maps", "rd_maps"),
+                # the inter pass's phase A (K10, K9, K2 with thinning, K3)
+                (wavefront.WavefrontPass, "_inter_phase", "inter_phase_a")):
             self._stage(mod, name, stage)
         for mod, name, key, size in (
                 (cdef, "cdef_dir", "cdef_dir", lambda a, k: a[0].numel()),
@@ -1155,7 +1184,7 @@ def bottom_lr_units(fes) -> list:
     return out
 
 
-def save_stream(name: str, data, digests: dict) -> None:
+def save_stream(name: str, data, digests: dict, size=None) -> None:
     """With --save-stream DIR: DIR/<name>.ivf and DIR/<name>_recon.json
     (the recon digests), for rav1e_tpu_torch/utils/stream_check.py to
     decode on a machine with libdav1d."""
@@ -1166,7 +1195,7 @@ def save_stream(name: str, data, digests: dict) -> None:
     out = Path(sys.argv[sys.argv.index("--save-stream") + 1])
     out.mkdir(parents=True, exist_ok=True)
     with open(out / f"{name}.ivf", "wb") as fh:
-        write_ivf_header(fh, W, H, 30, 1, len(data))
+        write_ivf_header(fh, *(size or (W, H)), 30, 1, len(data))
         for i, pkt in enumerate(data):
             write_ivf_frame(fh, i, pkt)
     (out / f"{name}_recon.json").write_text(json.dumps(digests))
@@ -1253,9 +1282,9 @@ def mixed_gop(card: str) -> list:
         data, recon, fes = encode(frames, check=True, mixed=True)
         torch.cuda.synchronize()
     finally:
-        cap.restore()
         for owner, name, orig in undo:
             setattr(owner, name, orig)
+        cap.restore()
     t_first = time.perf_counter() - t0
     counts = dict(kernels.COUNTS)
     types = encode.frame_types
@@ -1263,10 +1292,12 @@ def mixed_gop(card: str) -> list:
                       "first_encode_s": t_first, "frame_types": types,
                       "serialised_s": dict(secs), "card": card}))
     # every counter but the speed-5 path's own (phase 9), the host inter
-    # path's (phase 10) and frame_rd_maps (phase 11)
+    # path's (phase 10), frame_rd_maps (phase 11) and the tile route's
+    # (phase 13)
     missing = [k for k, v in counts.items()
                if v == 0 and k not in ("cfl", "wiener_lr_frame",
-                                       "me_fullpel_frame", "frame_rd_maps")]
+                                       "me_fullpel_frame", "frame_rd_maps",
+                                       "wavefront_tiles")]
     if missing:
         raise RuntimeError(f"kernels not launched on the mixed path: "
                            f"{missing}")
@@ -2161,20 +2192,22 @@ def rederive_split8(fes, limit: int = SPLIT8_SAMPLES) -> dict:
     return {"split8_sbs_rederived": sbs, "split8_leaves_in_them": leaves}
 
 
-def check_speed3_kernels(calls, ncalls, counts, frames_per_run):
-    """K1, K2, K3 and K11 on the largest call of each shape the speed-3
-    pass adds (SPEED3_SHAPES): identical to the plain version (K2 up to
-    its counted fp32 rounding ties), each timed beside its plain version,
-    its bound and, for K2, the torch.matmul forward transform.  `launches`
-    is the kernel's count on the phase's run, `shape_launches` its calls
-    at the shape.  Returns the kernels JSON list."""
+def check_leaf_kernels(calls, ncalls, counts, frames_per_run,
+                       keys=SPEED3_SHAPES):
+    """K1, K2, K3 and K11 on the largest call under each key of `keys`
+    (by default each shape the speed-3 pass adds, SPEED3_SHAPES; the key
+    names the kernel by its prefix): identical to the plain version (K2
+    up to its counted fp32 rounding ties), each timed beside its plain
+    version, its bound and, for K2, the torch.matmul forward transform.
+    `launches` is the kernel's count on the phase's run, `shape_launches`
+    its calls at the shape.  Returns the kernels JSON list."""
     import torch
 
     from rav1e_tpu_torch.ops import intra, transforms as tt
 
     out = []
     entry = make_entry(out, counts, frames_per_run)
-    for key in SPEED3_SHAPES:
+    for key in keys:
         _, a, k = calls[key]
         if key.startswith("intra_pred"):
             above, left, ha, hl, n, full = a[:6]
@@ -2191,7 +2224,10 @@ def check_speed3_kernels(calls, ncalls, counts, frames_per_run):
             resid, Fv, FhT, qdc, qac, shift = a[:6]
             qd = tt._as_blocks(qdc, resid)
             qa = tt._as_blocks(qac, resid)
-            ti = tt._as_blocks(k["tidx"], resid)
+            ti = (tt._as_blocks(k["tidx"], resid)
+                  if k.get("tidx") is not None else
+                  torch.zeros(resid.shape[:-2], dtype=torch.int32,
+                              device=resid.device))
             err, _share = check_fwd_ties(
                 tt.fwd_txq(*a, **k),
                 tt.fwd_txq_plain(resid, Fv, FhT, ti, qd, qa, shift), a, k,
@@ -2380,7 +2416,7 @@ def speed3(card: str) -> list:
     print(json.dumps({"speed3_bound_ms_per_frame": {
         k: v / SPEED3_FRAMES for k, v in cap.bounds.items()}, "card": card}))
     shape_counts = {key: counts[key.split("_n")[0]] for key in SPEED3_SHAPES}
-    results = check_speed3_kernels(cap.calls, cap.ncalls, shape_counts,
+    results = check_leaf_kernels(cap.calls, cap.ncalls, shape_counts,
                                    SPEED3_FRAMES)
     t1 = time.perf_counter()
     digests = [recon_digest(r) for r in recon]
@@ -2391,6 +2427,226 @@ def speed3(card: str) -> list:
     save_stream("speed3", data, {"recon_sha256": digests})
     print(json.dumps({"speed3_serial_pass": serial_pass(fes[-1], card)}))
     print(json.dumps({"speed3_cli": cli_on_card(card)}))
+    return results
+
+
+TILE_SIZE, TILE_FRAMES, TILE_COLS = (2560, 1600), 2, 4  # WQXGA: 40 x 25 SBs
+TILE_KERNELS = ("intra_pred", "fwd_txq", "inv_txfm")
+# the host filter path of the route's frames: K5 and K6 through the CDEF
+# search outside the chain; the chain's K4 deblock, K7 tap solve and K8's
+# chain mode stay idle (the route has no device-resident recon)
+TILE_LAUNCHED = TILE_KERNELS + ("cdef_dir", "cdef_filter")
+TILE_IDLE = ("deblock", "wiener_solve", "wiener_lr", "mc_pred",
+             "me_fullpel", "cfl", "frame_rd_maps")
+TILE_EDGE_SAMPLES = 4  # rows sampled on each side of each tile boundary
+RESUME_SIZE, RESUME_FRAMES = (320, 240), 3
+
+
+def _records(wf, r, c) -> list:
+    import numpy as np
+
+    return [tuple(np.asarray(x).tobytes() for x in rec)
+            for rec in wf.sb_records(r, c)]
+
+
+def rederive_tile_edges(fe) -> int:
+    """TILE_EDGE_SAMPLES superblock rows (seeded) on both sides of each
+    tile boundary of a route frame, re-derived from their tile's records
+    with the numpy oracles onto that tile's columns of the pre-filter
+    recon (a tile's edges never read across it).  Returns the count."""
+    import numpy as np
+
+    from rav1e_tpu_torch.utils import recon_check
+
+    wf = fe._chk_wf
+    tw = wf.tile_w_sb
+    rows = wf.geom.device_sb.shape[0]
+    rng = np.random.default_rng(0)
+    n = 0
+    for t in range(1, len(wf.tile_results)):
+        for r in rng.choice(rows, TILE_EDGE_SAMPLES, replace=False):
+            for tile, c in ((t - 1, tw - 1), (t, 0)):
+                x0 = tile * tw * 64
+                pre = [p[:, x0 >> (i > 0) : (x0 + tw * 64) >> (i > 0)]
+                       for i, p in enumerate(fe._chk_prefilter)]
+                if not recon_check.rederive_sb(wf.tile_results[tile], pre,
+                                               int(r), c, fe.dc_q, fe.ac_q):
+                    raise RuntimeError(f"tile {tile} SB ({r}, {c}) next to "
+                                       "a tile boundary does not re-derive")
+                n += 1
+    return n
+
+
+def serial_tile_pass(fe, card: str) -> dict:
+    """The tile route's pass of one frame alone (the key frame's initial
+    CDFs back, as in serial_pass), ended by a synchronize: its seconds
+    serialised.  Raises unless its records equal the encode's."""
+    import torch
+
+    from rav1e_tpu_torch.entropy.cdf import CdfContext
+    from rav1e_tpu_torch.parallel import tiles
+
+    adapted, fe.cdf = fe.cdf, CdfContext(fe.q)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = tiles.run_wavefront_sharded(fe, fe._tile_grid(),
+                                          fe.wavefront_mesh)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        fe.cdf = adapted
+    dev = res.geom.device_sb
+    if any(_records(res, r, c) != _records(fe._chk_wf, r, c)
+           for r, c in zip(*dev.nonzero())):
+        raise RuntimeError("the route's pass alone wrote other records")
+    g = res.tile_results[0].geom
+    return {"serial_pass_s": secs, "steps": g.steps,
+            "lanes": g.width * len(res.tile_results), "card": card}
+
+
+def resume_on_card(card: str, device: str = "cuda") -> dict:
+    """The CLI with --shard-dir (its main() here) on a RESUME_FRAMES-frame
+    RESUME_SIZE clip with key frame interval 1 (a segment a frame):
+    stopped after one segment (--limit 1), then run again over the same
+    directory, which resumes the rest; its stream must equal an
+    uninterrupted run's."""
+    import io
+    import tempfile
+
+    from rav1e_tpu_torch.__main__ import main as cli_main
+    from rav1e_tpu_torch.obu.ivf import read_ivf
+    from rav1e_tpu_torch.utils.content import make_frames
+    from rav1e_tpu_torch.utils.frame import write_y4m_frame, write_y4m_header
+
+    w, h = RESUME_SIZE
+    with tempfile.TemporaryDirectory() as d:
+        src = str(Path(d) / "in.y4m")
+        with open(src, "wb") as fh:
+            write_y4m_header(fh, w, h)
+            for f in make_frames(w, h, RESUME_FRAMES, seed=5):
+                write_y4m_frame(fh, f)
+
+        def run(name, shards, *extra):
+            out = str(Path(d) / f"{name}.ivf")
+            log = io.StringIO()
+            with contextlib.redirect_stdout(log):
+                rc = cli_main([src, "-o", out, "--keyint", "1",
+                               "--shard-dir", str(Path(d) / shards),
+                               "--device", device, *extra])
+            if rc != 0:
+                raise RuntimeError(f"the CLI returned {rc}")
+            with open(out, "rb") as fh:
+                return [pkt for _pts, pkt in read_ivf(fh)], log.getvalue()
+
+        t0 = time.perf_counter()
+        first, log1 = run("stopped", "part", "--limit", "1")
+        resumed, log2 = run("resumed", "part")
+        whole, log3 = run("whole", "full")
+        secs = time.perf_counter() - t0
+    if len(first) != 1 or resumed != whole or len(whole) != RESUME_FRAMES:
+        raise RuntimeError(f"resume: {len(first)} packet(s) before the stop, "
+                           f"resumed stream equal: {resumed == whole}")
+    if f"({1} resumed)" not in log2:
+        raise RuntimeError(f"the resumed run printed {log2!r}")
+    return {"frames": RESUME_FRAMES, "size": f"{w}x{h}",
+            "stopped_after_segments": len(first), "resumed_equal_whole": True,
+            "cli_lines": [log1.strip(), log2.strip(), log3.strip()],
+            "bytes": sum(map(len, whole)), "seconds": secs, "card": card}
+
+
+def tiles(card: str) -> list:
+    """The tile route (phase 13 of the module docstring).  Returns the
+    kernels JSON entries of its largest K1, K2 and K3 calls."""
+    import numpy as np
+    import torch
+
+    from rav1e_tpu_torch import kernels
+    from rav1e_tpu_torch.utils import recon_check
+    from rav1e_tpu_torch.utils.content import make_frames
+    from rav1e_tpu_torch.utils.stream_check import recon_digest
+
+    frames = make_frames(*TILE_SIZE, TILE_FRAMES)
+    # tune="psnr": the route ignores the psychovisual lambda map, as the
+    # JAX package's does (ROADMAP F8), so under EncoderConfig's default
+    # tune its bytes would differ from the single-device encode's
+    kw = dict(check=True, size=TILE_SIZE, tile_cols=TILE_COLS, tune="psnr")
+    cap = Capture()
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        data, recon, fes = encode(frames, threads=TILE_COLS, **kw)
+        torch.cuda.synchronize()
+    finally:
+        cap.restore()
+    t_enc = time.perf_counter() - t0
+    counts = dict(kernels.COUNTS)
+    routes, stages = encode.key_routes, encode.stages
+    print(json.dumps({"tiles_path_launches": counts, "key_routes": routes,
+                      "card": card}))
+    print(json.dumps({"tiles_encode": {
+        "frames": TILE_FRAMES, "size": "%dx%d" % TILE_SIZE,
+        "tile_cols": TILE_COLS, "threads": TILE_COLS, "seconds": t_enc,
+        "fps": TILE_FRAMES / t_enc, "stages_s": stages, "card": card}}))
+    missing = [k for k in TILE_LAUNCHED if counts[k] == 0]
+    ran = [k for k in TILE_IDLE if counts[k]]
+    if (missing or ran or counts["wavefront_tiles"] != TILE_FRAMES
+            or routes != {"tiles": TILE_FRAMES} or len(fes) != TILE_FRAMES):
+        raise RuntimeError(f"tile route: not launched {missing}, launched "
+                           f"off the path {ran}, routes {routes}, "
+                           f"wavefront_tiles {counts['wavefront_tiles']}")
+    print(json.dumps({"tiles_bound_ms_per_frame": {
+        k: v / TILE_FRAMES for k, v in cap.bounds.items()}, "card": card}))
+    t1 = time.perf_counter()
+    single, single_recon, single_fes = encode(frames, **kw)
+    torch.cuda.synchronize()
+    t_single = time.perf_counter() - t1
+    if encode.key_routes != {"single": TILE_FRAMES}:
+        raise RuntimeError(f"threads=0 took {encode.key_routes}")
+    sbs = 0
+    for f, (fe, fs) in enumerate(zip(fes, single_fes)):
+        dev = fs._chk_wf.geom.device_sb
+        if not (dev == fe._chk_wf.geom.device_sb).all():
+            raise RuntimeError(f"frame {f}: the routes' device SBs differ")
+        for r, c in zip(*dev.nonzero()):
+            if _records(fe._chk_wf, r, c) != _records(fs._chk_wf, r, c):
+                raise RuntimeError(f"frame {f} SB ({r}, {c}): the route's "
+                                   "records differ from the single pass's")
+            sbs += 1
+    same_recon = all(np.array_equal(np.asarray(a[p]), np.asarray(b[p]))
+                     for a, b in zip(recon, single_recon) for p in range(3))
+    if single != data or not same_recon:
+        raise RuntimeError("the route's bytes or recon differ from the "
+                           "single-device encode's")
+    print(json.dumps({"tiles_vs_single": {
+        "bytes_equal": True, "recon_equal": True, "sb_records_equal": sbs,
+        "single_seconds": t_single, "single_fps": TILE_FRAMES / t_single,
+        "single_stages_s": encode.stages, "card": card}}))
+    renames = {k: k + "_tiles" for k in TILE_KERNELS}
+    results = check_leaf_kernels(
+        {renames[k]: cap.calls[k] for k in TILE_KERNELS},
+        {renames[k]: cap.ncalls[k] for k in TILE_KERNELS},
+        {renames[k]: counts[k] for k in TILE_KERNELS}, TILE_FRAMES,
+        keys=tuple(renames.values()))
+    for r in results:
+        r["path"] = "rav1e_tpu/parallel/tiles.py:78 run_wavefront_sharded"
+    t2 = time.perf_counter()
+    edges = sum(rederive_tile_edges(fe) for fe in fes)
+    if not recon_check.filters_match(fes[0], fes[0]._chk_prefilter,
+                                     recon[0]):
+        raise RuntimeError("the route's frame 0: the numpy filters over its "
+                           "pre-filter frame differ from the output")
+    digests = [recon_digest(r) for r in recon]
+    print(json.dumps({"tiles_output": {
+        "dav1d": check_decode(data, recon), "tile_edge_sbs_rederived": edges,
+        "filter_chain_np_frames": 1, "recon_sha256": digests},
+        "bytes": sum(map(len, data)), "check_s": time.perf_counter() - t2}))
+    save_stream("tiles", data, {"recon_sha256": digests}, size=TILE_SIZE)
+    print(json.dumps({"tiles_serial_pass": {
+        "route": serial_tile_pass(fes[-1], card),
+        "single": serial_pass(single_fes[-1], card)}}))
+    print(json.dumps({"tiles_resume": resume_on_card(card)}))
     return results
 
 
@@ -2506,6 +2762,7 @@ def main() -> int:
     results += default_gop(card)
     results += hbd_gop(card)
     results += speed3(card)
+    results += tiles(card)
     print(json.dumps({"parity": {r["name"]: r["max_abs_err"]
                                  for r in results}}))
     if any(m == "jax" or m.startswith("jax.") or m == "rav1e_tpu"

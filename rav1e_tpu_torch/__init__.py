@@ -25,18 +25,22 @@ configuration (low_latency=False: pyramid, multi-reference and compound
 frames on the host inter path, its ME maps on the card); 4:2:0 frames of
 10 and 12 bits (the host walk over frame_rd_maps, the host inter path on
 16-bit planes, CDEF and the Wiener trial filter at the frame's bit
-depth).  Lossless coding (quantizer 0) raises NotImplementedError at the
+depth); tile-column encodes (Config(threads=N) with tile_cols=N: the key
+frames' wavefront pass over their tile columns as one batch on the
+Context's device, parallel/tiles.py); the GOP-shard checkpoint/resume
+(api/resume.py, the CLI's --shard-dir), the channel API (api/channel.py)
+and the C API facade (capi.py).  Lossless coding (quantizer 0) raises NotImplementedError at the
 Context: its key frames would lack the 4x4 Walsh-Hadamard transform, as
 the JAX package's do, and not decode to the recon (ROADMAP fault F6);
 FrameEncoder still codes them as the JAX package does, for the parity
 tests.  4:2:2 and 4:4:4 frames encode
 through the same host paths (without CDEF, as in the JAX package) but
 are not yet held against it (ROADMAP queue 1 item 10b).  What raises
-NotImplementedError names its ROADMAP queue 1 item: segmentation on inter
-wavefront frames: item 10; the loop-restoration decision from the device
-planes of a chain without its LR stage (lr_decide_device): item 10;
-tile-sharded and multi-GPU encodes (parallel/): item 11; the CLI's
---shard-dir (api/resume.py): item 13.
+NotImplementedError names its ROADMAP item: segmentation on inter
+wavefront frames: queue 1 item 10; the loop-restoration decision from
+the device planes of a chain without its LR stage (lr_decide_device):
+queue 1 item 10; tile columns spread over several GPUs (a mesh whose
+shards lie on other devices than the frame's): queue 2 item 16b.
 
 Layout:
   api/      Config / Context / EncoderStatus public API
@@ -46,6 +50,7 @@ Layout:
   ops/      intra, transforms, deblock, cdef, lrf and the filter chain
             (device)
   models/   encode pipelines (wavefront pass, band maps, frame encoders)
+  parallel/ the tile route: tile columns as a batch axis of the pass
   utils/    frames, stats, the libdav1d conformance oracle
   csrc/     CUDA sources of the kernels
 """

@@ -2,7 +2,7 @@
 
 Usage: python -m rav1e_tpu_torch input.y4m -o output.ivf [--quantizer 100]
            [--speed 6] [--limit N] [--psnr] [--reconstruction recon.y4m]
-           [--device cuda|cpu]
+           [--keyint N] [--shard-dir DIR] [--device cuda|cpu]
 
 The device passes run on the GPU; `--device cpu` asks for the kernels'
 plain PyTorch versions on the CPU (Config(device="cpu")).  Without a GPU
@@ -43,15 +43,14 @@ def main(argv=None) -> int:
     ap.add_argument("--shard-dir",
                     help="per-GOP checkpointing: write keyframe-segment "
                          "shards + manifest here, resuming a killed encode "
-                         "at the last completed segment (not ported yet)")
+                         "at the last completed segment")
+    ap.add_argument("--keyint", type=int, default=0,
+                    help="maximum keyframe interval (0 = the default 240; "
+                         "the minimum is capped at it)")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the device passes (default cuda; "
                          "cpu runs the kernels' plain versions)")
     args = ap.parse_args(argv)
-    if args.shard_dir:
-        raise NotImplementedError(
-            "--shard-dir needs api/resume.py, which is not ported yet "
-            "(ROADMAP queue 1 item 13)")
 
     fin = sys.stdin.buffer if args.input == "-" else open(args.input, "rb")
     meta, frames = read_y4m(fin)
@@ -71,9 +70,41 @@ def main(argv=None) -> int:
             rc_stats=(open(args.second_pass, "rb").read() if args.second_pass else None),
             time_base=(fps[1], fps[0]),
             speed_settings=SpeedSettings.from_preset(args.speed),
+            **({"max_key_frame_interval": args.keyint,
+                "min_key_frame_interval": min(
+                    args.keyint, EncoderConfig.min_key_frame_interval)}
+               if args.keyint else {}),
         ),
         device=args.device,
     )
+    if args.shard_dir:
+        # checkpointed flow (api/resume.py): buffered frames, per-segment
+        # shards, automatic resume from the manifest
+        from rav1e_tpu_torch.api.resume import ShardedEncodeSession
+
+        frames_l = list(frames)
+        if args.limit:
+            frames_l = frames_l[: args.limit]
+        sess = ShardedEncodeSession(
+            cfg, args.shard_dir,
+            lambda i: frames_l[i] if i < len(frames_l) else None)
+        skipped = sess.frames_done
+        t0 = time.perf_counter()
+        sess.run()
+        dt = time.perf_counter() - t0
+        fout = open(args.output, "wb")
+        write_ivf_header(fout, w, h, fps[0], fps[1])
+        total = 0
+        for no, data in zip(sess.packet_framenos(), sess.packets()):
+            write_ivf_frame(fout, no, data)
+            total += len(data)
+        fout.close()
+        enc_frames = len(frames_l) - skipped
+        rate = total * 8 * fps[0] / fps[1] / max(1, len(frames_l)) / 1000.0
+        print(f"encoded {enc_frames} frames ({skipped} resumed), "
+              f"{dt:.2f}s, {rate:.1f} kb/s")
+        return 0
+
     ctx = cfg.new_context()
 
     fout = open(args.output, "wb")

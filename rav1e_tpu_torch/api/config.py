@@ -125,9 +125,16 @@ class EncoderConfig:
 class Config:
     """Reference analog: Config (src/api/config/mod.rs).
 
-    threads: the reference's rayon pool size; here it is the number of
-    devices the encoder may shard tile columns over (0 = single device;
-    sharding is not ported yet)."""
+    threads: the reference's rayon pool size; here the number of shards
+    the key frames' tile columns are spread over (0 = single-device
+    encode).  With threads > 1 and enc.tile_cols > 1 key frames take the
+    tile route (parallel/tiles.py): min(threads, tile_cols) shards, all on
+    this Config's one device, where the tile columns are a batch axis of
+    one wavefront pass.  Its envelope: at least 2 tile columns of equal
+    superblock width, width and height multiples of 64, one tile row;
+    other frames take the single-device pass.  Its bytes equal the
+    single-device encode's, except with the psychovisual lambda map or
+    segmentation on (ROADMAP F8)."""
 
     enc: EncoderConfig = field(default_factory=EncoderConfig)
     threads: int = 0

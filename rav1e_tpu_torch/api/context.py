@@ -52,7 +52,11 @@ class Packet:
 class Context:
     """Frame in -> packet out.  Single-pass CQ for now; the orchestration
     ring (lookahead, scenechange, rate control, GOP pyramid) attaches here
-    as it lands (see SURVEY.md section 2.2)."""
+    as it lands (see SURVEY.md section 2.2).
+
+    With threads > 1 and enc.tile_cols > 1 the key frames take the tile
+    route (parallel/tiles.py) on this Context's one device: every shard of
+    its mesh lies there, however many GPUs are visible."""
 
     GROUP = 4  # pyramid sub-GOP length (reference: InterConfig group_input_len)
 
@@ -226,10 +230,18 @@ class Context:
 
             self._encoder = FrameEncoder(self.enc, device=self.device)
             self._encoder.prefetch_hook = self._maybe_prefetch_next
+            # the tile route (reference analog: the rayon tile pool):
+            # engaged when the config asks for both threads and tile
+            # columns.  The JAX package also needs as many devices, since a
+            # TPU batches tiles only over a mesh axis; on a GPU the tile
+            # columns are a batch axis of one device, so every shard lies
+            # on this Context's device, whatever other GPUs are visible
+            # (spreading them is ROADMAP queue 2 item 16b)
             if self.threads > 1 and self.enc.tile_cols > 1:
-                raise NotImplementedError(
-                    "tile-column sharding over several GPUs: ROADMAP queue 1 "
-                    "item 11")
+                from rav1e_tpu_torch.parallel.mesh import make_mesh
+
+                self._encoder.wavefront_mesh = make_mesh(
+                    min(self.threads, self.enc.tile_cols), self.device)
             if self.enc.bitrate > 0:
                 from rav1e_tpu_torch.api.rate import RCState
 

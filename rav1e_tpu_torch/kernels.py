@@ -35,9 +35,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # launches in frame mode (the whole restored plane, no unit choice) and
 # "me_fullpel_frame" for me_fullpel's launches from the host inter path's
 # frame_me_map; "frame_rd_maps" counts that route's calls on the card
-# (each launches intra_pred and fwd_txq twice, at n = 32 and 16)
+# (each launches intra_pred and fwd_txq twice, at n = 32 and 16), and
+# "wavefront_tiles" the key frames whose pass ran on the card over their
+# tile columns (parallel/tiles.py; K1-K3 and K11 launch inside it)
 COUNTS = {k: 0 for k in KERNELS + ("fwd_txq_thin", "wiener_lr_frame",
-                                   "me_fullpel_frame", "frame_rd_maps")}
+                                   "me_fullpel_frame", "frame_rd_maps",
+                                   "wavefront_tiles")}
 # nvcc's output of the last build of each kernel (ptxas: registers, spills)
 BUILD_LOGS: dict = {}
 _LIBS: dict = {}

@@ -388,12 +388,17 @@ class IntraFrameEncoder:
                     "missing from the port's native library")
         self._wf_launched = None
         if launch and self._wf_capable() and self._wavefront_eligible():
-            if getattr(self, "wavefront_mesh", None) is not None:
-                raise NotImplementedError(
-                    "tile-sharded wavefront: ROADMAP queue 1 item 11")
-            from rav1e_tpu_torch.models.wavefront import launch_wavefront
+            mesh = getattr(self, "wavefront_mesh", None)
+            if mesh is not None:
+                # the tile route; None outside its envelope
+                from rav1e_tpu_torch.parallel.tiles import launch_sharded
 
-            self._wf_launched = launch_wavefront(self, self._tile_grid())
+                self._wf_launched = launch_sharded(
+                    self, self._tile_grid(), mesh)
+            if self._wf_launched is None:
+                from rav1e_tpu_torch.models.wavefront import launch_wavefront
+
+                self._wf_launched = launch_wavefront(self, self._tile_grid())
         self._launch_band_maps()
         self._prepared = True
 
@@ -955,14 +960,22 @@ class IntraFrameEncoder:
         When the device wavefront pass applies, the whole decision/recon
         datapath has already run on device (models/wavefront.py) and only
         the entropy passes run here."""
+        wf = None
         if self._nbc is not None and getattr(self, "_wf_launched", None) is not None:
             try:
                 with self.stats.stage("device_wait"):
+                    # None: a tile-row frame the tile route declines here
+                    # (parallel/tiles.py); it is coded by the host walk
                     wf = self._wf_launched.collect()
             finally:
                 self._wf_launched = None
-            # device-resident recon planes (Y, U, V) for the filter chain
-            self._wf_dev_out = wf.dev_out
+        if type(self) is IntraFrameEncoder:
+            self.stats.key_routes[wf.route if wf is not None else "host"] += 1
+        if wf is not None:
+            # device-resident recon planes (Y, U, V) for the filter chain;
+            # the tile route has none, so its frames take the host filter
+            # path
+            self._wf_dev_out = getattr(wf, "dev_out", None)
             return self._encode_tiles_wavefront(wf)
         tiles = self._tile_grid()
         frame_cdf = self.cdf

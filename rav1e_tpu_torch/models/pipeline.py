@@ -131,6 +131,11 @@ class FrameEncoder:
             device=self.device,
         )
         fe.lrf = self.seq.enable_restoration
+        # the tile route (Config.threads + tile_cols), set by the Context;
+        # only key frames take it
+        mesh = getattr(self, "wavefront_mesh", None)
+        if mesh is not None:
+            fe.wavefront_mesh = mesh
         return fe
 
     def prefetch_key_frame(self, frame, q_idx: int | None = None) -> None:
@@ -163,6 +168,7 @@ class FrameEncoder:
             fes.append(fe)
         batch = None
         if all(fe._nbc is not None and fe._wavefront_eligible()
+               and getattr(fe, "wavefront_mesh", None) is None
                for fe in fes):
             from rav1e_tpu_torch.models.wavefront import launch_wavefront_batch
 

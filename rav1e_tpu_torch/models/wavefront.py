@@ -1160,6 +1160,8 @@ class WavefrontResult:
     """Numpy views over one device pass: recon planes, split map, and
     per-SB block records in decode order."""
 
+    route = "single"  # the key frame's route (parallel/tiles.py: "tiles")
+
     def __init__(self, geom: WavefrontGeometry, rec, split, out32, out16,
                  levels, split16=None, out8=None, packed=None, none64=None,
                  has_mv=False):
@@ -1350,35 +1352,39 @@ def launch_wavefront(fe, tiles) -> LaunchedWavefront | None:
                     flags[7], flags[8], flags[9], device=fe.device)
     grids = _lane_grids(fe, geom)
     extra, ref_bytes = _inter_upload(fe) if flags[9] else ((), ())
-    upload = pack_upload([fe], [grids], _mode_bit_params(fe), extra,
+    upload = pack_upload([fe.src], [grids], _mode_bit_params(fe), extra,
                          ref_bytes)
     up = torch.from_numpy(upload).to(fe.device)
     return LaunchedWavefront(geom, fe, fn(up, *_geom_dev(geom, fe.device)))
 
 
+def _uniform_grids(fe, geom):
+    """(lambda, dc_q, ac_q) float32 (K, B, 4) lane grids holding the
+    frame's own values in every lane."""
+    K, B = geom.steps, geom.width
+    return tuple(np.full((K, B, 4), v, np.float32)
+                 for v in (fe.lam, fe.dc_q, fe.ac_q))
+
+
 def _lane_grids(fe, geom):
     """Per-quadrant (lambda, dc_q, ac_q) float32 (K, B, 4) lane grids."""
-    K, B = geom.steps, geom.width
-    lam_q = np.full((K, B, 4), fe.lam, np.float32)
-    qdc_q = np.full((K, B, 4), fe.dc_q, np.float32)
-    qac_q = np.full((K, B, 4), fe.ac_q, np.float32)
-    _fill_lane_params(fe, geom, lam_q, qdc_q, qac_q)
-    return lam_q, qdc_q, qac_q
+    grids = _uniform_grids(fe, geom)
+    _fill_lane_params(fe, geom, *grids)
+    return grids
 
 
-def pack_upload(fes, grids, bits, extra=(), ref_bytes=()) -> np.ndarray:
+def pack_upload(srcs, grids, bits, extra=(), ref_bytes=()) -> np.ndarray:
     """The pass's single uint8 input, laid out as the JAX pass reads it:
-    every frame's Y, then every U, then every V, then the float32
-    parameters (lane grids, frame f in lanes [f*B, (f+1)*B), then the
-    shared mode-bit tail, then the inter pass's `extra` grids), then the
-    inter pass's reference bytes."""
+    every slot's Y, then every U, then every V (srcs: a [Y, U, V] list a
+    slot, a frame or a tile column), then the float32 parameters (lane
+    grids, slot f in lanes [f*B, (f+1)*B), then the shared mode-bit tail,
+    then the inter pass's `extra` grids), then the inter pass's reference
+    bytes."""
     cat = lambda i: np.concatenate([g[i] for g in grids], axis=1).ravel()
     params = np.concatenate([cat(0), cat(1), cat(2), bits, *extra]).astype(
         np.float32)
     return np.concatenate(
-        [fe.src[0].astype(np.uint8).ravel() for fe in fes]
-        + [fe.src[1].astype(np.uint8).ravel() for fe in fes]
-        + [fe.src[2].astype(np.uint8).ravel() for fe in fes]
+        [src[p].astype(np.uint8).ravel() for p in range(3) for src in srcs]
         + [params.view(np.uint8), *ref_bytes])
 
 
@@ -1477,20 +1483,22 @@ class _BatchSlot:
         return self.batch.collect(self.f)
 
 
+def split_batch(out, F: int, B: int, Hp: int) -> list:
+    """Per-slot device views, in the single-frame layout, of a pass over F
+    slots stacked along rows (B lanes and Hp rows a slot)."""
+    rec, y, u, v = out
+    return [(rec[:, :, f * B : (f + 1) * B],
+             y[f * Hp : (f + 1) * Hp],
+             u[f * (Hp >> 1) : (f + 1) * (Hp >> 1)],
+             v[f * (Hp >> 1) : (f + 1) * (Hp >> 1)])
+            for f in range(F)]
+
+
 class LaunchedWavefrontBatch:
     def __init__(self, geom, fes, out):
         self.geom = geom
         self.fes = fes
-        # per-frame device views in the single-frame layout
-        F = len(fes)
-        B = geom.width
-        Hp = fes[0].h
-        rec, y, u, v = out
-        self.parts = [(rec[:, :, f * B : (f + 1) * B],
-                       y[f * Hp : (f + 1) * Hp],
-                       u[f * (Hp >> 1) : (f + 1) * (Hp >> 1)],
-                       v[f * (Hp >> 1) : (f + 1) * (Hp >> 1)])
-                      for f in range(F)]
+        self.parts = split_batch(out, len(fes), geom.width, fes[0].h)
 
     def slot(self, f: int) -> _BatchSlot:
         return _BatchSlot(self, f)
@@ -1530,7 +1538,8 @@ def launch_wavefront_batch(fes, tiles) -> LaunchedWavefrontBatch | None:
                     flags0[2], flags0[3], flags0[4], fe0.mi_cols,
                     fe0.mi_rows, flags0[5], flags0[6], flags0[7], flags0[8],
                     device=fe0.device)
-    upload = pack_upload(fes, [_lane_grids(fe, geom) for fe in fes], bits0)
+    upload = pack_upload([fe.src for fe in fes],
+                         [_lane_grids(fe, geom) for fe in fes], bits0)
     up = torch.from_numpy(upload).to(fe0.device)
     out = fn(up, *_geom_dev(geom, fe0.device, F))
     return LaunchedWavefrontBatch(geom, list(fes), out)

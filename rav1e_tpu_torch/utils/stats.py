@@ -39,6 +39,10 @@ class EncoderStats:
     tx_type_counts: Counter = field(default_factory=Counter)
     cfl_blocks: int = 0
     stage_seconds: Counter = field(default_factory=Counter)
+    # key frames by the route that coded them: "tiles" (the pass over the
+    # tile columns), "single" (the single-device pass) or "host" (the
+    # host walk)
+    key_routes: Counter = field(default_factory=Counter)
 
     def record_block(self, mode: int, bw: int, bh: int, skip: bool,
                      tx_name: str, cfl: bool) -> None:
@@ -66,6 +70,7 @@ class EncoderStats:
         self.bsize_counts.update(other.bsize_counts)
         self.tx_type_counts.update(other.tx_type_counts)
         self.stage_seconds.update(other.stage_seconds)
+        self.key_routes.update(other.key_routes)
 
     def summary(self) -> str:
         lines = []

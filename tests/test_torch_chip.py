@@ -9,7 +9,9 @@ the four of the leaves also at the speed-3 pass's 8x8 and 4x4 shapes,
 and above 8 bits cdef_dir, cdef_filter, wiener_lr in frame mode and
 me_fullpel on uint16 planes; frame_rd_maps by its tie rule;
 fwd_txq, with and without the inter race's thinning, within its
-rounding-tie share).  Without a card they skip.  On a machine without JAX (the tests' conftest imports
+rounding-tie share), and the paths that drive them (among them the tile
+route of Config(threads=4) with 4 tile columns).  Without a card they
+skip.  On a machine without JAX (the tests' conftest imports
 it) run them as
 
     python -m pytest --noconftest tests/test_torch_chip.py
@@ -394,11 +396,13 @@ def test_mixed_gop_on_card_conforms(monkeypatch):
     data, recon, fes = chip_smoke.encode(make_frames(320, 240, 3), check=True,
                                          mixed=True)
     # every counter but the speed-5 path's own (cfl, K8's frame mode), the
-    # host inter path's (frame_me_map) and the host key walk's
-    # (frame_rd_maps), as chip_smoke.py's mixed-GOP phase counts them
+    # host inter path's (frame_me_map), the host key walk's
+    # (frame_rd_maps) and the tile route's (wavefront_tiles), as
+    # chip_smoke.py's mixed-GOP phase counts them
     assert all(v > 0 for k, v in kernels.COUNTS.items()
                if k not in ("cfl", "wiener_lr_frame", "me_fullpel_frame",
-                            "frame_rd_maps")), kernels.COUNTS
+                            "frame_rd_maps", "wavefront_tiles")), \
+        kernels.COUNTS
     assert [fe._chk_wf.has_mv for fe in fes] == [False, True, True]
     summary = chip_smoke.check_output(data, recon, fes, 2)
     assert summary["sbs_rederived_with_inter_blocks"] > 0
@@ -697,3 +701,35 @@ def test_frame_rd_maps_on_card():
         return (d * dp.DIST_SCALE[n] + lam_t * (r + 6.0)).cpu().numpy()
 
     chip_smoke.rd_map_ties(got, ref, table_of)
+
+
+def test_tile_route_on_card():
+    """2 key frames of 512x256 with 4 tile columns and Config(threads=4)
+    on the card: both take the tile route (`wavefront_tiles` counts each),
+    K1-K3 launch inside it and K4 and K7 stay idle (the host filter path),
+    and the bytes, recon and records equal the single-device encode's."""
+    import chip_smoke
+    from rav1e_tpu_torch import kernels
+    from rav1e_tpu_torch.utils.content import make_frames
+
+    _card()
+    frames = make_frames(512, 256, 2)
+    kw = dict(check=True, size=(512, 256), tile_cols=4, tune="psnr")
+    kernels.reset_counts()
+    data, recon, fes = chip_smoke.encode(frames, threads=4, **kw)
+    counts = dict(kernels.COUNTS)
+    assert chip_smoke.encode.key_routes == {"tiles": 2}
+    assert counts["wavefront_tiles"] == 2, counts
+    assert all(counts[k] > 0 for k in chip_smoke.TILE_KERNELS), counts
+    assert counts["deblock"] == counts["wiener_solve"] == 0, counts
+    single, single_recon, single_fes = chip_smoke.encode(frames, **kw)
+    assert chip_smoke.encode.key_routes == {"single": 2}
+    assert single == data
+    for a, b in zip(recon, single_recon):
+        for p in range(3):
+            assert np.array_equal(np.asarray(a[p]), np.asarray(b[p]))
+    for fe, fs in zip(fes, single_fes):
+        for r, c in zip(*fs._chk_wf.geom.device_sb.nonzero()):
+            assert (chip_smoke._records(fe._chk_wf, r, c)
+                    == chip_smoke._records(fs._chk_wf, r, c))
+    assert sum(chip_smoke.rederive_tile_edges(fe) for fe in fes) > 0

@@ -442,13 +442,34 @@ def test_cli_round_trip(tmp_path):
 
 
 def test_cli_refuses_shard_dir(tmp_path):
-    """--shard-dir needs api/resume.py, not ported yet: NotImplementedError
-    naming its ROADMAP item."""
+    """--shard-dir (api/resume.py): the checkpointed CLI writes the JAX
+    package's CLI stream for the same clip, and run again over the same
+    directory it resumes every segment and writes the same stream, which
+    decodes."""
+    from rav1e_tpu.__main__ import main as jmain
     from rav1e_tpu_torch.__main__ import main
+    from rav1e_tpu_torch.obu.ivf import read_ivf
 
-    with pytest.raises(NotImplementedError, match="item 13"):
-        main([str(tmp_path / "in.y4m"), "-o", str(tmp_path / "o.ivf"),
-              "--device", "cpu", "--shard-dir", str(tmp_path)])
+    w, h = 64, 64
+    src = str(tmp_path / "in.y4m")
+    _write_y4m(src, make_planes(w, h, 2), w, h)
+    out = {}
+    for name, fn, extra in (("jax", jmain, []),
+                            ("port", main, ["--device", "cpu"]),
+                            ("resumed", main, ["--device", "cpu"])):
+        ivf = str(tmp_path / f"{name}.ivf")
+        shards = str(tmp_path / ("jax" if name == "jax" else "port"))
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            assert fn([src, "-o", ivf, "--shard-dir", shards] + extra) == 0
+        with open(ivf, "rb") as fh:
+            out[name] = [pkt for _pts, pkt in read_ivf(fh)]
+        out[name + "_log"] = log.getvalue()
+    assert out["port"] == out["jax"]
+    assert out["resumed"] == out["port"]
+    assert "(0 resumed)" in out["port_log"]
+    assert "encoded 0 frames (2 resumed)" in out["resumed_log"]
+    assert len(dav1d.decode_stream(out["port"])) == 2
 
 
 def test_cli_needs_a_card_unless_cpu(tmp_path):
