@@ -149,6 +149,22 @@
    --shard-dir on a RESUME_FRAMES-frame RESUME_SIZE clip with key frame
    interval 1, stopped after one segment and resumed: its stream must
    equal an uninterrupted run's.
+14. Drives the multi-device half of parallel/: prints the visible GPUs
+   and the slots (distinct GPUs where several are visible, else slots
+   sharing cuda:0).  With the counts set to 0 before it, deblock_sharded
+   over MULTI_SHARDS shards runs on phase 13's first frame (its three
+   pre-filter planes, DeblockInfo and levels: luma slabs of 640 columns,
+   chroma of 320) and on one seeded 10-bit 2560x1600 plane of flat
+   patches; K4 must launch (its launches counted on this path).  Each
+   result, and that of a seeded 12-bit plane after the path, must be
+   identical to K4's single-device deblock_plane, to its plain version
+   on the card and to the serial deblock_np.  Times the sharded and the
+   single-device deblock (CUDA events) beside the bytes bound.  Then
+   frame 0 of phase 13's clip through Config(threads=4) with the
+   Context's mesh on MULTI_SLOTS slots (two GPUs where two are visible,
+   else both on cuda:0): bytes, recon and its 1,000 superblock records
+   must equal phase 13's one-slot route's; and dryrun_multidevice
+   (parallel/dryrun.py) over MULTI_SHARDS slots.
 
 The line before the last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero.
@@ -532,8 +548,7 @@ WORK = {
     "fwd_rd_float": lambda a, k: _fwd_work(a, k, False),
     "inv_txfm": lambda a, k: (a[0].numel() * 8,
                               a[0].numel() * 4 * a[0].shape[-1].bit_length()),
-    "deblock": lambda a, k: (a[0].numel() * 8 + a[5].numel() * 9,
-                             a[0].numel() * 100 / 4),
+    "deblock": lambda a, k: _deblock_pass_work(a),
     # K5: ~14 a sample (bins and weighted squares)
     "cdef_dir": lambda a, k: (a[0].numel() * 4 + a[0].numel() // 64 * 8,
                               a[0].numel() * 14),
@@ -571,6 +586,34 @@ def shape_key(key: str, a, k) -> str:
 
 def bound_ms(nbytes, ops) -> float:
     return max(nbytes / PEAK_BYTES, ops / PEAK_FP32) * 1e3
+
+
+def _k4_reads(h: int, w: int, s_along: int, s_across: int, grid) -> tuple:
+    """Boolean masks over a pass's (along, across) mi grid of the entries
+    K4 reads over an (h, w) view (csrc/deblock.cu): the transform sizes
+    and skip flags of both sides of each edge, and the block positions of
+    its current side."""
+    import numpy as np
+
+    along = (np.arange(0, h, 4) << s_along) >> 2
+    ex = np.arange(1, w // 4) * 4
+    cur, prev = (ex << s_across) >> 2, ((ex - 1) << s_across) >> 2
+    tx = np.zeros(grid, bool)
+    bp = np.zeros(grid, bool)
+    tx[np.ix_(along, cur)] = tx[np.ix_(along, prev)] = True
+    bp[np.ix_(along, cur)] = True
+    return tx, bp
+
+
+def _deblock_pass_work(a) -> tuple:
+    """K4's (bytes, operations) on deblock_pass's arguments `a`: each
+    sample read and written once as int32, the map entries it reads (4
+    bytes a transform size or block position, 1 a skip flag), ~100
+    operations a line and edge."""
+    img, tx = a[0], a[5]
+    txm, bpm = _k4_reads(*img.shape, a[8], a[9], tuple(tx.shape))
+    return (img.numel() * 8 + int(txm.sum()) * 5 + int(bpm.sum()) * 4,
+            img.numel() * 100 / 4)
 
 
 class Capture:
@@ -2647,6 +2690,234 @@ def tiles(card: str) -> list:
         "route": serial_tile_pass(fes[-1], card),
         "single": serial_pass(single_fes[-1], card)}}))
     print(json.dumps({"tiles_resume": resume_on_card(card)}))
+    # phase 14 reads frame 0 of this phase
+    tiles.first = (frames[0], data[0], recon[0], fes[0])
+    return results
+
+
+# phase 14, the multi-device half of parallel/: deblock_sharded over 4
+# shards (luma slabs of 640 columns on a 2560-wide frame, chroma of 320)
+# and the tile route over 2 slots
+MULTI_SHARDS, MULTI_SLOTS = 4, 2
+MULTI_BD = 10  # the seeded plane's bit depth on the path
+MULTI_BD_CHECKED = 12  # and a seeded plane's held to the same checks
+
+
+def _deblock_work(cases, info) -> tuple:
+    """(bytes, operations) of deblocking each (plane, plane_idx, sub, bd)
+    of `cases` whole: each sample read and written once as int32; of the
+    maps, the entries K4 reads (_k4_reads): txw and bx in the vertical
+    pass, txh and by in the horizontal one, skip where either reads it
+    (a 4:2:0 chroma pass reads only every other mi line); ~100
+    operations a line and edge in each direction."""
+    nbytes = ops = 0
+    grid = info.skip.shape
+    for plane, _p, s, _bd in cases:
+        h, w = plane.shape
+        txv, bpv = _k4_reads(h, w, s, s, grid)
+        txh, bph = (m.T for m in _k4_reads(w, h, s, s, grid[::-1]))
+        nbytes += (plane.size * 8 + 4 * int(txv.sum() + bpv.sum()
+                                            + txh.sum() + bph.sum())
+                   + int((txv | txh).sum()))
+        ops += plane.size * 100 / 4 * 2
+    return nbytes, ops
+
+
+def flat_plane(rng, h: int, w: int, bd: int):
+    """Flat 8x8 patches with +-1 (at 8 bits) noise, so that most edges
+    pass the filter masks (uniform noise passes none)."""
+    import numpy as np
+
+    top = 1 << bd
+    base = np.kron(rng.integers(top // 4, 3 * top // 4, (h // 8 + 1,
+                                                         w // 8 + 1)),
+                   np.ones((8, 8), np.int64))[:h, :w]
+    step = 1 << (bd - 8)
+    return np.clip(base + step * rng.integers(-1, 2, (h, w)), 0,
+                   top - 1).astype(np.int32)
+
+
+def multidevice(card: str, frame, packet, frame_recon, fe,
+                device: str = "cuda") -> list:
+    """The multi-device path (phase 14 of the module docstring) on phase
+    13's frame 0 (`frame`, its packet, recon and encoder); with device
+    "cpu" every slot is the CPU.  Returns the kernels JSON entries of K4
+    on the sharded path."""
+    import numpy as np
+    import torch
+
+    from rav1e_tpu_torch import kernels
+    from rav1e_tpu_torch.ops import deblock as db
+    from rav1e_tpu_torch.ops import deblock_np as dnp
+    from rav1e_tpu_torch.parallel import mesh as tmesh
+    from rav1e_tpu_torch.parallel import tiles as ttiles
+    from rav1e_tpu_torch.parallel.dryrun import default_slots, dryrun_multidevice
+
+    t_phase = time.perf_counter()
+    slots_of = default_slots if device == "cuda" else lambda n: [device] * n
+    mesh = tmesh.make_mesh(MULTI_SHARDS, devices=slots_of(MULTI_SHARDS))
+    check_us = guard_us = None
+    if device == "cuda":
+        # on the host's clock: the current-device check every launch makes
+        # (kernels.launch), and the device guard it enters for a tensor on
+        # another device than the current one
+        on = torch.device("cuda", 0)
+        t0 = time.perf_counter()
+        for _ in range(10000):
+            torch.cuda.current_device()
+        check_us = (time.perf_counter() - t0) / 10000 * 1e6
+        t0 = time.perf_counter()
+        for _ in range(10000):
+            with torch.cuda.device(on):
+                pass
+        guard_us = (time.perf_counter() - t0) / 10000 * 1e6
+    print(json.dumps({"multidevice_slots": {
+        "device_count": torch.cuda.device_count(),
+        "slots": [str(d) for d in mesh.slots],
+        "shard_devices": [str(d) for d in mesh.devices],
+        "distinct_gpus": len({d for d in mesh.slots if d.type == "cuda"}),
+        "device_check_us": check_us, "device_guard_us": guard_us,
+        "card": card}}))
+    info, levels, sharp = fe.db_info, fe.lf_levels, fe.lf_sharpness
+    if not (levels[0] and levels[1]):
+        raise RuntimeError(f"phase 13's frame 0 has luma levels {levels}")
+    cases = [(fe._chk_prefilter[p], p, 0 if p == 0 else 1, 8)
+             for p in range(3)]
+    h, w = cases[0][0].shape
+    cases += [(flat_plane(np.random.default_rng(14), h, w, bd), 0, 0, bd)
+              for bd in (MULTI_BD, MULTI_BD_CHECKED)]
+
+    def sharded(case):
+        plane, p, s, bd = case
+        return ttiles.deblock_sharded(mesh, plane, info, levels, sharp, p, s,
+                                      s, bd, plane.shape[1], plane.shape[0])
+
+    # the phase's path: the frame's three planes, then the 10-bit plane
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    outs = [sharded(c) for c in cases[:3]]
+    launches8 = kernels.COUNTS["deblock"]
+    outs.append(sharded(cases[3]))
+    launches10 = kernels.COUNTS["deblock"] - launches8
+    t_path = time.perf_counter() - t0
+    if device == "cuda" and not (launches8 and launches10):
+        raise RuntimeError(f"K4 launches on the sharded path: {launches8}, "
+                           f"{launches10}")
+    outs.append(sharded(cases[4]))
+
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
+    maps = [t(a) for a in (info.txw, info.txh, info.bx, info.by, info.skip)]
+
+    def whole(xs):
+        """K4's single-device deblock_plane of each (plane on the card,
+        case)."""
+        return [db.deblock_plane(x, *maps, p, s, s,
+                                 *db.plane_lims(levels, sharp, p, bd), bd)
+                for x, (_, p, s, bd) in xs]
+
+    def plain(xs):
+        """The same two directions through K4's plain version,
+        deblock_pass_plain, on the same card tensors."""
+        txw, txh, bx, by, skip = maps
+        res = []
+        for x, (_, p, s, bd) in xs:
+            lv, lh = db.plane_lims(levels, sharp, p, bd)
+            x = db.deblock_pass_plain(x, *lv[:3], bd, p, txw >> s, bx >> s,
+                                      skip, s, s)
+            res.append(db.deblock_pass_plain(
+                x.t(), *lh[:3], bd, p, (txh >> s).t(), (by >> s).t(),
+                skip.t(), s, s).t())
+        return res
+
+    errs = []
+    for case, out in zip(cases, outs):
+        plane, p, s, bd = case
+        xs = [(t(plane), case)]
+        ref = plane.copy()
+        dnp.deblock_plane(ref, info, p, levels, sharp, s, s, bd,
+                          plane.shape[1], plane.shape[0])
+        if np.array_equal(ref, plane):
+            raise RuntimeError(f"plane {p} at {bd} bits: the deblock "
+                               "filtered nothing")
+        ref = t(ref)
+        errs.append(max(int((t(out) - ref).abs().max()),
+                        int((whole(xs)[0] - ref).abs().max()),
+                        int((plain(xs)[0] - ref).abs().max())))
+    if any(errs):
+        raise RuntimeError(f"deblock_sharded, K4's deblock_plane, its plain "
+                           f"version and deblock_np differ: {errs}")
+
+    report = {"deblock_sharded_launches": launches8,
+              "deblock_sharded_10bit_launches": launches10,
+              "max_abs_err": errs, "path_s": t_path, "card": card}
+    timing = {}
+    for name, group in (("frame_8bit", cases[:3]), ("plane_10bit",
+                                                    cases[3:4])):
+        xs = [(t(c[0]), c) for c in group]
+        work = _deblock_work(group, info)
+        timing[name] = (work, {
+            "sharded_ms": cuda_ms(lambda: [sharded(c) for c in group],
+                                  reps=5),
+            "single_ms": cuda_ms(lambda: whole(xs), reps=10),
+            "plain_ms": cuda_ms(lambda: plain(xs), reps=2),
+            "bound_ms": bound_ms(*work)})
+        report[name] = timing[name][1]
+    print(json.dumps({"multidevice_deblock": report}))
+    results = []
+    entry = make_entry(results, {"deblock_sharded": launches8,
+                                 "deblock_sharded_10bit": launches10}, 1)
+    for name, key, err in (("deblock_sharded", "frame_8bit", max(errs[:3])),
+                           ("deblock_sharded_10bit", "plane_10bit",
+                            errs[3])):
+        work, tm = timing[key]
+        entry(name, "rav1e_tpu_torch/csrc/deblock.cu",
+              "rav1e_tpu/parallel/tiles.py:153", err, tm["sharded_ms"],
+              tm["plain_ms"], work)
+    for r in results:
+        r["path"] = "rav1e_tpu/parallel/tiles.py:153 deblock_sharded"
+
+    # frame 0 through the Context with its mesh on MULTI_SLOTS slots
+    route_slots = [torch.device(d) for d in slots_of(MULTI_SLOTS)]
+    orig = tmesh.slots_for
+    tmesh.slots_for = lambda _device, _n, _count: route_slots
+    kernels.reset_counts()
+    t1 = time.perf_counter()
+    try:
+        data, recon, fes = encode([frame], check=True, device=device,
+                                  size=(w, h), tile_cols=TILE_COLS,
+                                  threads=TILE_COLS, tune="psnr")
+        torch.cuda.synchronize()
+    finally:
+        tmesh.slots_for = orig
+    t_route = time.perf_counter() - t1
+    counts = dict(kernels.COUNTS)
+    slots = fes[0].wavefront_mesh.slots
+    if (encode.key_routes != {"tiles": 1} or list(slots) != route_slots
+            or counts["wavefront_tiles"] != (device == "cuda")):
+        raise RuntimeError(f"the {MULTI_SLOTS}-slot route: routes "
+                           f"{encode.key_routes}, slots {slots}, "
+                           f"wavefront_tiles {counts['wavefront_tiles']}")
+    dev_sb = fe._chk_wf.geom.device_sb
+    sbs = 0
+    for r, c in zip(*dev_sb.nonzero()):
+        if _records(fes[0]._chk_wf, r, c) != _records(fe._chk_wf, r, c):
+            raise RuntimeError(f"SB ({r}, {c}): the {MULTI_SLOTS}-slot "
+                               "route's records differ from one slot's")
+        sbs += 1
+    if data != [packet] or not all(
+            np.array_equal(np.asarray(recon[0][p]),
+                           np.asarray(frame_recon[p])) for p in range(3)):
+        raise RuntimeError(f"the {MULTI_SLOTS}-slot route's bytes or recon "
+                           "differ from one slot's")
+    print(json.dumps({"multidevice_route": {
+        "slots": [str(d) for d in slots], "bytes_equal": True,
+        "recon_equal": True, "sb_records_equal": sbs, "seconds": t_route,
+        "launches": {k: counts[k] for k in TILE_KERNELS}, "card": card}}))
+    line = dryrun_multidevice(
+        MULTI_SHARDS, None if device == "cuda" else [device] * MULTI_SHARDS)
+    print(json.dumps({"multidevice_dryrun": line,
+                      "phase_s": time.perf_counter() - t_phase,
+                      "card": card}))
     return results
 
 
@@ -2763,6 +3034,7 @@ def main() -> int:
     results += hbd_gop(card)
     results += speed3(card)
     results += tiles(card)
+    results += multidevice(card, *tiles.first)
     print(json.dumps({"parity": {r["name"]: r["max_abs_err"]
                                  for r in results}}))
     if any(m == "jax" or m.startswith("jax.") or m == "rav1e_tpu"

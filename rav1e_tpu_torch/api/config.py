@@ -128,9 +128,11 @@ class Config:
     threads: the reference's rayon pool size; here the number of shards
     the key frames' tile columns are spread over (0 = single-device
     encode).  With threads > 1 and enc.tile_cols > 1 key frames take the
-    tile route (parallel/tiles.py): min(threads, tile_cols) shards, all on
-    this Config's one device, where the tile columns are a batch axis of
-    one wavefront pass.  Its envelope: at least 2 tile columns of equal
+    tile route (parallel/tiles.py): min(threads, tile_cols) shards, laid
+    over the first min(threads, tile_cols, GPUs) GPUs where device is
+    "cuda" and several are visible, else all on this Config's one device;
+    the tile columns of a slot are a batch axis of its one wavefront
+    pass.  Its envelope: at least 2 tile columns of equal
     superblock width, width and height multiples of 64, one tile row;
     other frames take the single-device pass.  Its bytes equal the
     single-device encode's, except with the psychovisual lambda map or

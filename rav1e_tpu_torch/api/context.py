@@ -55,8 +55,10 @@ class Context:
     as it lands (see SURVEY.md section 2.2).
 
     With threads > 1 and enc.tile_cols > 1 the key frames take the tile
-    route (parallel/tiles.py) on this Context's one device: every shard of
-    its mesh lies there, however many GPUs are visible."""
+    route (parallel/tiles.py) over a mesh of min(threads, tile_cols)
+    shards: on the first min(threads, tile_cols, GPUs) GPUs when the
+    device is "cuda" and several are visible, else all on this Context's
+    device (parallel/mesh.py slots_for)."""
 
     GROUP = 4  # pyramid sub-GOP length (reference: InterConfig group_input_len)
 
@@ -234,14 +236,18 @@ class Context:
             # engaged when the config asks for both threads and tile
             # columns.  The JAX package also needs as many devices, since a
             # TPU batches tiles only over a mesh axis; on a GPU the tile
-            # columns are a batch axis of one device, so every shard lies
-            # on this Context's device, whatever other GPUs are visible
-            # (spreading them is ROADMAP queue 2 item 16b)
+            # columns are a batch axis of each slot's device, so one GPU
+            # takes them all and several share them
             if self.threads > 1 and self.enc.tile_cols > 1:
-                from rav1e_tpu_torch.parallel.mesh import make_mesh
+                import torch
 
+                from rav1e_tpu_torch.parallel.mesh import make_mesh, slots_for
+
+                n = min(self.threads, self.enc.tile_cols)
+                count = (torch.cuda.device_count()
+                         if torch.cuda.is_available() else 0)
                 self._encoder.wavefront_mesh = make_mesh(
-                    min(self.threads, self.enc.tile_cols), self.device)
+                    n, devices=slots_for(self.device, n, count))
             if self.enc.bitrate > 0:
                 from rav1e_tpu_torch.api.rate import RCState
 

@@ -1,5 +1,5 @@
 // K4 deblock: one direction of the normative AV1 deblocking filter
-// (spec 7.14), 4/6/8/14 taps, bit-exact, int32.
+// (spec 7.14), 4/6/8/14 taps, bit-exact, int32, at bit depth 8, 10 or 12.
 //
 // Replaces rav1e_tpu/ops/deblock_jax.py:125 _pass_dir with :35 _filter_taps,
 // as run by the deblock part of ops/filter_chain_jax.py:184-203.  The TPU
@@ -14,8 +14,19 @@
 //
 // The plane is addressed through strides, so the vertical-edge pass
 // (edges along rows) and the horizontal-edge pass (the transposed view)
-// are the same kernel.  Bound on the H100: bytes (one read and at most one
-// write of each sample; ~100 integer operations per line and edge).
+// are the same kernel.
+//
+// The slab window (rav1e_tpu/parallel/tiles.py:153 deblock_sharded, its
+// edge_valid mask at :216-219): the pass may run over a column slab of a
+// wider plane, its neighbours' halo columns included, whose column 0 lies
+// at plane x = x0 (negative where the slab starts with a halo).  An edge
+// filters only where its plane x, ex + x0, is an edge of the plane (4 <=
+// ex + x0 <= plane_w - 4), and it is a transform edge where its plane x is
+// a multiple of the transform width.  With x0 = 0 and plane_w = w the
+// window is the whole view, as for a whole plane.
+//
+// Bound on the H100: bytes (one read and at most one write of each
+// sample; ~100 integer operations per line and edge).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -37,20 +48,23 @@ __global__ void deblock_pass_kernel(const int32_t *__restrict__ in,
                                     const uint8_t *__restrict__ skip,
                                     int m_line, int m_samp, int s_along,
                                     int s_across, int limit, int blimit,
-                                    int thresh, int plane_idx) {
+                                    int thresh, int plane_idx, int x0,
+                                    int plane_w, int F) {
     const int E = w / 4 - 1;  // edges at x = 4, 8, ..., 4E
     const long long total = (long long)h * E;
     for (long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x; t < total;
          t += (long long)gridDim.x * blockDim.x) {
         const int y = (int)(t / E);
         const int ex = ((int)(t % E) + 1) * 4;
+        const int xp = ex + x0;  // the edge's plane x
+        if (xp < 4 || xp > plane_w - 4) continue;
         const int mi_along = ((y & ~3) << s_along) >> 2;
         const int mi_cur = (ex << s_across) >> 2;
         const int mi_prev = ((ex - 1) << s_across) >> 2;
         const int mc = mi_along * m_line + mi_cur * m_samp;
         const int mp = mi_along * m_line + mi_prev * m_samp;
         const int cur_tx = tx_across[mc], prev_tx = tx_across[mp];
-        const bool is_tx_edge = (ex % max(cur_tx, 1)) == 0;
+        const bool is_tx_edge = (xp % max(cur_tx, 1)) == 0;
         const bool is_blk = bpos[mc] == ex;
         const bool apply = is_tx_edge && (is_blk || !skip[mc] || !skip[mp]);
         if (!apply) continue;
@@ -69,7 +83,6 @@ __global__ void deblock_pass_kernel(const int32_t *__restrict__ in,
                          abs(p0 - q0) * 2 + (abs(p1 - q1) >> 1) <= blimit;
         const bool fm6 = fm4 && abs(p2 - p1) <= limit && abs(q2 - q1) <= limit;
         const bool fm8 = fm6 && abs(p3 - p2) <= limit && abs(q3 - q2) <= limit;
-        const int F = 1;  // 8-bit
         const bool flat = abs(p1 - p0) <= F && abs(q1 - q0) <= F &&
                           abs(p2 - p0) <= F && abs(q2 - q0) <= F;
         const bool flat8 = flat && abs(p3 - p0) <= F && abs(q3 - q0) <= F;
@@ -142,8 +155,8 @@ extern "C" int deblock_pass(const void *in, void *out, int h, int w,
                             int s_line, int s_samp, const void *tx_across,
                             const void *bpos, const void *skip, int m_line,
                             int m_samp, int s_along, int s_across, int limit,
-                            int blimit, int thresh, int plane_idx,
-                            void *stream) {
+                            int blimit, int thresh, int plane_idx, int x0,
+                            int plane_w, int bd, void *stream) {
     const long long total = (long long)h * (w / 4 - 1);
     if (total > 0) {
         const int threads = 256;
@@ -152,7 +165,7 @@ extern "C" int deblock_pass(const void *in, void *out, int h, int w,
             (const int32_t *)in, (int32_t *)out, h, w, s_line, s_samp,
             (const int32_t *)tx_across, (const int32_t *)bpos,
             (const uint8_t *)skip, m_line, m_samp, s_along, s_across, limit,
-            blimit, thresh, plane_idx);
+            blimit, thresh, plane_idx, x0, plane_w, 1 << (bd - 8));
     }
     return (int)cudaGetLastError();
 }

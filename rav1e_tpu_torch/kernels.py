@@ -10,6 +10,13 @@ at once and waits for all of them.
 `COUNTS` holds one launch counter per kernel.  A wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that its path went
 through the kernels.
+
+Every wrapper launches through `launch`, which makes the device of the
+tensors it was given the CUDA runtime's current device for the launch
+(entering a device guard only where it is not current already): a
+kernel starts on the current device, so with the shards of a mesh on
+several GPUs (parallel/mesh.py) a launch on another GPU's tensors would
+otherwise fail or run on the wrong card.
 """
 
 from __future__ import annotations
@@ -54,7 +61,7 @@ ARGTYPES = {
                 _ci, _ci, _cf, _cf, _vp, _vp, _vp, _vp, _vp, _vp],
     "inv_txfm": [_vp, _vp, _ci, _ci, _ci, _vp, _ci, _ci, _ci, _ci, _vp],
     "deblock_pass": [_vp, _vp, _ci, _ci, _ci, _ci, _vp, _vp, _vp, _ci, _ci,
-                     _ci, _ci, _ci, _ci, _ci, _ci, _vp],
+                     _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _vp],
     "cdef_dir": [_vp, _ci, _ci, _ci, _ci, _vp, _vp, _vp],
     "cdef_filter": [_vp, _vp, _vp, _ci, _ci, _vp, _vp, _vp, _ci, _ci, _ci,
                     _ci, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _vp, _vp, _vp,
@@ -150,6 +157,21 @@ def check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {rc}")
+
+
+def launch(name: str, on, *args, count: str | None = None) -> None:
+    """Launch kernel `name` on `args` and the current stream of tensor
+    `on`'s device, with that device current, and count it under `count`
+    (`name` by default).  The device guard is entered only when `on` lies
+    on another device than the current one."""
+    import torch
+
+    fn = getattr(lib(name), _ENTRY[name])
+    if on.device.index != torch.cuda.current_device():
+        with torch.cuda.device(on.device):
+            return launch(name, on, *args, count=count)
+    COUNTS[count or name] += 1
+    check(fn(*args, stream_ptr(on)), count or name)
 
 
 def stream_ptr(t) -> int:

@@ -253,11 +253,9 @@ def me_fullpel(src: torch.Tensor, ref: torch.Tensor, n: int = 32,
     quarter = torch.empty((2, Hh // 4, Ww // 4), dtype=torch.int32,
                           device=dev)
     mv = torch.empty((Hh // n, Ww // n, 2), dtype=torch.int32, device=dev)
-    fn = kernels.lib("me_fullpel").me_fullpel
-    kernels.COUNTS[count] += 1
-    kernels.check(fn(s.data_ptr(), s.stride(0), r.data_ptr(), r.stride(0),
-                     Hh, Ww, s.element_size(), quarter.data_ptr(),
-                     mv.data_ptr(), kernels.stream_ptr(s)), "me_fullpel")
+    kernels.launch("me_fullpel", s, s.data_ptr(), s.stride(0), r.data_ptr(),
+                   r.stride(0), Hh, Ww, s.element_size(), quarter.data_ptr(),
+                   mv.data_ptr(), count=count)
     return mv
 
 

@@ -141,11 +141,8 @@ def cdef_dir(plane: torch.Tensor, bd: int = 8):
         x = x.contiguous()
     dirs = torch.empty((nby, nbx), dtype=torch.int32, device=x.device)
     var = torch.empty_like(dirs)
-    fn = kernels.lib("cdef_dir").cdef_dir
-    kernels.COUNTS["cdef_dir"] += 1
-    kernels.check(fn(x.data_ptr(), x.stride(0), nby, nbx, bd - 8,
-                     dirs.data_ptr(), var.data_ptr(), kernels.stream_ptr(x)),
-                  "cdef_dir")
+    kernels.launch("cdef_dir", x, x.data_ptr(), x.stride(0), nby, nbx,
+                   bd - 8, dirs.data_ptr(), var.data_ptr())
     return dirs, var
 
 
@@ -323,15 +320,12 @@ def cdef_filter(y, u, v, sy, su, sv, dirs, var, active, damping: int,
         vo = torch.empty_like(uo)
     else:
         sse = torch.empty((11, nsby, nsbx), dtype=torch.int64, device=dev)
-    fn = kernels.lib("cdef_filter").cdef_filter
-    kernels.COUNTS["cdef_filter"] += 1
-    kernels.check(fn(y.data_ptr(), u.data_ptr(), v.data_ptr(), y.stride(0),
-                     u.stride(0), sy.data_ptr(), su.data_ptr(), sv.data_ptr(),
-                     sy.stride(0), su.stride(0), h, w, dirs.data_ptr(),
-                     var.data_ptr(), act.data_ptr(), nbx, damping, bd - 8,
-                     mode, kernels.ptr(idx), kernels.ptr(sse), kernels.ptr(yo),
-                     kernels.ptr(uo), kernels.ptr(vo), kernels.stream_ptr(y)),
-                  "cdef_filter")
+    kernels.launch("cdef_filter", y, y.data_ptr(), u.data_ptr(),
+                   v.data_ptr(), y.stride(0), u.stride(0), sy.data_ptr(),
+                   su.data_ptr(), sv.data_ptr(), sy.stride(0), su.stride(0),
+                   h, w, dirs.data_ptr(), var.data_ptr(), act.data_ptr(), nbx,
+                   damping, bd - 8, mode, kernels.ptr(idx), kernels.ptr(sse),
+                   kernels.ptr(yo), kernels.ptr(uo), kernels.ptr(vo))
     return (yo, uo, vo) if mode == APPLY else sse
 
 

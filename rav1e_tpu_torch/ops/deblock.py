@@ -9,7 +9,11 @@ unmodified plane and writes each edge's taps equals the serial walk.
 `deblock_pass` filters the vertical edges of a (h, w) plane view; the
 horizontal edges are the same pass over the transposed view.  On a CUDA
 tensor it launches csrc/deblock.cu; on a CPU tensor it runs the plain
-version below.
+version below.  Its slab window (x0, width) lets it run over a column slab
+of a wider plane with its neighbours' halo columns (parallel/tiles.py
+deblock_sharded): only the edges of the plane itself filter.
+`deblock_plane` is both directions over one plane (the counterpart of
+deblock_jax.py:203 deblock_plane_jnp).
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from rav1e_tpu_torch import kernels
+from rav1e_tpu_torch.ops.deblock_np import thresholds
 
 
 def _r3(x):
@@ -119,26 +124,33 @@ def filter_taps(p, q, limit, blimit, thresh, size, bd):
 
 
 def deblock_pass_plain(img, limit, blimit, thresh, bd, plane_idx, tx_across,
-                       bpos, skip, s_along, s_across):
+                       bpos, skip, s_along, s_across, x0: int = 0,
+                       width: int | None = None):
     """One direction over a (h, w) plane view, edges along axis 0.
-    tx_across/bpos/skip: per-mi maps oriented like img."""
+    tx_across/bpos/skip: per-mi maps oriented like img.  The view's column
+    0 lies at plane x = x0 of a plane `width` wide (default: the view):
+    only edges at plane x in [4, width - 4] filter, and transform edges
+    are found at plane x (tiles.py:216-219 edge_valid)."""
     h, w = img.shape
     E = w // 4 - 1  # edges at x = 4, 8, ..., 4E
     if E <= 0:
         return img
+    width = w if width is None else width
     dev = img.device
     g = torch.arange(0, h, 4, device=dev)
     mi_along = (g << s_along) >> 2
     ex = (torch.arange(E, device=dev) + 1) * 4
+    xp = ex + x0  # each edge's plane x
     mi_cur = (ex << s_across) >> 2
     mi_prev = ((ex - 1) << s_across) >> 2
     cur_tx = tx_across[mi_along[:, None], mi_cur[None, :]]
     prev_tx = tx_across[mi_along[:, None], mi_prev[None, :]]
-    is_tx_edge = (ex[None, :] % torch.clamp(cur_tx, min=1)) == 0
+    is_tx_edge = (xp[None, :] % torch.clamp(cur_tx, min=1)) == 0
     is_blk = bpos[mi_along[:, None], mi_cur[None, :]] == ex[None, :]
     cur_sk = skip[mi_along[:, None], mi_cur[None, :]]
     prev_sk = skip[mi_along[:, None], mi_prev[None, :]]
-    apply_ = is_tx_edge & (is_blk | ~cur_sk | ~prev_sk)
+    apply_ = (is_tx_edge & (is_blk | ~cur_sk | ~prev_sk)
+              & ((xp >= 4) & (xp <= width - 4))[None, :])
     size_across = torch.minimum(cur_tx, prev_tx)
     if plane_idx == 0:
         fsize = torch.where(size_across >= 16, 14,
@@ -167,15 +179,19 @@ def deblock_pass_plain(img, limit, blimit, thresh, bd, plane_idx, tx_across,
 def deblock_pass(img: torch.Tensor, limit: int, blimit: int, thresh: int,
                  plane_idx: int, tx_across: torch.Tensor, bpos: torch.Tensor,
                  skip: torch.Tensor, s_along: int, s_across: int,
-                 bd: int = 8) -> torch.Tensor:
-    """Filter the vertical edges of `img` (h, w) int32 (K4).  tx_across /
-    bpos (int32) and skip (bool) are per-mi maps indexed [mi_along,
-    mi_across]; transposed views are fine.  Returns a new plane."""
+                 bd: int = 8, x0: int = 0,
+                 width: int | None = None) -> torch.Tensor:
+    """Filter the vertical edges of `img` (h, w) int32 (K4) at bit depth
+    bd.  tx_across / bpos (int32) and skip (bool) are per-mi maps indexed
+    [mi_along, mi_across]; transposed views are fine.  x0, width: the slab
+    window of deblock_pass_plain.  Returns a new plane."""
     if img.device.type == "cpu":
         return deblock_pass_plain(img, limit, blimit, thresh, bd, plane_idx,
-                                  tx_across, bpos, skip, s_along, s_across)
-    if bd != 8:
-        raise NotImplementedError("the deblock kernel is 8-bit only")
+                                  tx_across, bpos, skip, s_along, s_across,
+                                  x0, width)
+    if bd not in (8, 10, 12):
+        raise ValueError(f"the deblock kernel takes bit depth 8, 10 or 12, "
+                         f"not {bd}")
     x = img.to(torch.int32)
     # the kernel addresses input and output through the same strides (a
     # transposed view serves the horizontal-edge pass without a copy)
@@ -187,25 +203,33 @@ def deblock_pass(img: torch.Tensor, limit: int, blimit: int, thresh: int,
     if tx.stride() != bp.stride() or tx.stride() != sk.stride():
         tx, bp, sk = tx.contiguous(), bp.contiguous(), sk.contiguous()
     h, w = x.shape
-    fn = kernels.lib("deblock").deblock_pass
-    kernels.COUNTS["deblock"] += 1
-    kernels.check(fn(x.data_ptr(), out.data_ptr(), h, w, x.stride(0),
-                     x.stride(1), tx.data_ptr(), bp.data_ptr(), sk.data_ptr(),
-                     tx.stride(0), tx.stride(1), s_along, s_across,
-                     int(limit), int(blimit), int(thresh), plane_idx,
-                     kernels.stream_ptr(x)), "deblock")
+    kernels.launch("deblock", x, x.data_ptr(), out.data_ptr(), h, w,
+                   x.stride(0), x.stride(1), tx.data_ptr(), bp.data_ptr(),
+                   sk.data_ptr(), tx.stride(0), tx.stride(1), s_along,
+                   s_across, int(limit), int(blimit), int(thresh), plane_idx,
+                   int(x0), w if width is None else int(width), bd)
     return out
+
+
+def plane_lims(levels, sharpness: int, plane_idx: int, bd: int):
+    """(lims_v, lims_h) of one plane for deblock_plane: (limit, blimit,
+    thresh, enabled) of its vertical and horizontal level slots, as
+    deblock_np.deblock_plane picks them from the frame's four levels."""
+    slots = (0, 1) if plane_idx == 0 else (1 + plane_idx,) * 2
+    return tuple(tuple(int(v) for v in thresholds(levels[s], sharpness, bd))
+                 + (levels[s] != 0,) for s in slots)
 
 
 def deblock_plane(img, txw, txh, bx, by, skip, plane_idx, sub_x, sub_y,
                   lims_v, lims_h, bd: int = 8):
-    """Both directions over one plane (vertical edges first).  lims_*:
-    (limit, blimit, thresh, enabled) of the pass's level slot."""
+    """Both directions over one plane (vertical edges first) through
+    deblock_pass.  lims_*: (limit, blimit, thresh, enabled) of the pass's
+    level slot (plane_lims)."""
     if lims_v[3]:
-        img = deblock_pass(img, lims_v[0], lims_v[1], lims_v[2], plane_idx,
-                           txw >> sub_x, bx >> sub_x, skip, sub_y, sub_x, bd)
+        img = deblock_pass(img, *lims_v[:3], plane_idx, txw >> sub_x,
+                           bx >> sub_x, skip, sub_y, sub_x, bd)
     if lims_h[3]:
-        img = deblock_pass(img.t(), lims_h[0], lims_h[1], lims_h[2],
-                           plane_idx, (txh >> sub_y).t(), (by >> sub_y).t(),
-                           skip.t(), sub_x, sub_y, bd).t()
+        img = deblock_pass(img.t(), *lims_h[:3], plane_idx,
+                           (txh >> sub_y).t(), (by >> sub_y).t(), skip.t(),
+                           sub_x, sub_y, bd).t()
     return img

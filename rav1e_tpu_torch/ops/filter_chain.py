@@ -34,7 +34,6 @@ import torch
 from rav1e_tpu_torch.ops import cdef
 from rav1e_tpu_torch.ops import deblock as db
 from rav1e_tpu_torch.ops import lrf
-from rav1e_tpu_torch.ops.deblock_np import thresholds
 
 
 def _splice(fe, dev_rec, device):
@@ -91,6 +90,16 @@ def _restore(planes, dbs, srcs, fe, out_w: int, out_h: int):
     return comp, choice, taps, en
 
 
+def filter_chain_device(fe) -> bool:
+    """Launch and collect in one call (filter_chain_jax.py:299): False when
+    the frame is outside the chain's envelope, else True with fe.rec
+    filtered."""
+    handle = launch_filter_chain(fe)
+    if handle is None:
+        return False
+    return collect_filter_chain(fe, handle)
+
+
 def launch_filter_chain(fe):
     """Enqueue the in-loop filters of an IntraFrameEncoder's recon on its
     device.  Returns a handle for collect_filter_chain, or None when the
@@ -106,17 +115,13 @@ def launch_filter_chain(fe):
     maps = [torch.as_tensor(np.ascontiguousarray(a), device=device)
             for a in (info.txw, info.txh, info.bx, info.by)]
     skip = torch.as_tensor(np.ascontiguousarray(info.skip), device=device)
-    lims = []
-    for slot in range(4):
-        lv = fe.lf_levels[slot]
-        lims.append(tuple(int(v) for v in thresholds(lv, fe.lf_sharpness,
-                                                     fe.bd)) + (lv != 0,))
     dbs = []
-    for p, (slot_v, slot_h) in enumerate(((0, 1), (2, 2), (3, 3))):
+    for p in range(3):
         s = 0 if p == 0 else 1
-        dbs.append(db.deblock_plane(planes[p], *maps, skip, p, s, s,
-                                    lims[slot_v], lims[slot_h],
-                                    fe.bd).contiguous())
+        dbs.append(db.deblock_plane(
+            planes[p], *maps, skip, p, s, s,
+            *db.plane_lims(fe.lf_levels, fe.lf_sharpness, p, fe.bd),
+            fe.bd).contiguous())
     lr_fuse = _lr_fuse(fe)
     # the host LR search (SGR, per-unit taps) reads the deblocked planes
     keep_db = dbs if fe.lrf and getattr(fe, "sgr_search", False) else None

@@ -195,12 +195,9 @@ def intra_pred(above: torch.Tensor, left: torch.Tensor, ha: torch.Tensor,
     hli = hl.to(torch.int32).contiguous()
     out = torch.empty((B, nch, n, n), dtype=torch.int32, device=a.device)
     dr, smw = _dev_tables(a.device)
-    fn = kernels.lib("intra_pred").intra_pred
-    kernels.COUNTS["intra_pred"] += 1
-    kernels.check(fn(a.data_ptr(), lf.data_ptr(), hai.data_ptr(),
-                     hli.data_ptr(), B, n, 1 if full else 0, bd,
-                     dr.data_ptr(), smw[n].data_ptr(), out.data_ptr(),
-                     kernels.stream_ptr(a)), "intra_pred")
+    kernels.launch("intra_pred", a, a.data_ptr(), lf.data_ptr(),
+                   hai.data_ptr(), hli.data_ptr(), B, n, 1 if full else 0, bd,
+                   dr.data_ptr(), smw[n].data_ptr(), out.data_ptr())
     return out
 
 
@@ -253,9 +250,6 @@ def cfl(luma: torch.Tensor, dc: torch.Tensor, src: torch.Tensor,
     alpha = torch.empty((B, 2), dtype=torch.int32, device=y.device)
     pred = torch.empty_like(d)
     resid = torch.empty_like(d)
-    fn = kernels.lib("cfl").cfl
-    kernels.COUNTS["cfl"] += 1
-    kernels.check(fn(y.data_ptr(), B, n, d.data_ptr(), s.data_ptr(), bd,
-                     alpha.data_ptr(), pred.data_ptr(), resid.data_ptr(),
-                     kernels.stream_ptr(y)), "cfl")
+    kernels.launch("cfl", y, y.data_ptr(), B, n, d.data_ptr(), s.data_ptr(),
+                   bd, alpha.data_ptr(), pred.data_ptr(), resid.data_ptr())
     return alpha, pred, resid

@@ -144,11 +144,8 @@ def wiener_solve(ds, ss):
     for d, s in zip(ds, ss):
         args += [d.data_ptr(), s.data_ptr(), d.stride(0), s.stride(0),
                  d.shape[0], d.shape[1]]
-    fn = kernels.lib("wiener_solve").wiener_solve
-    kernels.COUNTS["wiener_solve"] += 1
-    kernels.check(fn(*args, nbands, part.data_ptr(), taps.data_ptr(),
-                     en.data_ptr(), kernels.stream_ptr(ds[0])),
-                  "wiener_solve")
+    kernels.launch("wiener_solve", ds[0], *args, nbands, part.data_ptr(),
+                   taps.data_ptr(), en.data_ptr())
     return taps, en
 
 
@@ -255,13 +252,11 @@ def wiener_lr(cd, db, src, taps, en, lam: float, rate: float, unit: int,
     nr, nc = lr.count_units(unit, hh), lr.count_units(unit, ww)
     out = torch.empty((hh, ww), dtype=torch.int32, device=cd.device)
     choice = torch.empty((nr, nc), dtype=torch.int32, device=cd.device)
-    fn = kernels.lib("wiener_lr").wiener_lr
-    kernels.COUNTS["wiener_lr"] += 1
-    kernels.check(fn(cd.data_ptr(), cd.stride(0), db.data_ptr(), db.stride(0),
-                     src.data_ptr(), src.stride(0), hh, ww, unit, 8,
-                     taps.data_ptr(), en.data_ptr(), float(np.float32(lam)),
-                     float(np.float32(rate)), out.data_ptr(),
-                     choice.data_ptr(), kernels.stream_ptr(cd)), "wiener_lr")
+    kernels.launch("wiener_lr", cd, cd.data_ptr(), cd.stride(0),
+                   db.data_ptr(), db.stride(0), src.data_ptr(), src.stride(0),
+                   hh, ww, unit, 8, taps.data_ptr(), en.data_ptr(),
+                   float(np.float32(lam)), float(np.float32(rate)),
+                   out.data_ptr(), choice.data_ptr())
     return out, choice.to(torch.bool)
 
 
@@ -283,12 +278,10 @@ def wiener_filter_frame(cd, db, taps, stripe: int, hh: int, ww: int,
     cd, db = _rows(cd), _rows(db)
     taps = taps.to(torch.int32).contiguous()
     out = torch.empty((hh, ww), dtype=torch.int32, device=cd.device)
-    fn = kernels.lib("wiener_lr").wiener_lr
-    kernels.COUNTS["wiener_lr_frame"] += 1
-    kernels.check(fn(cd.data_ptr(), cd.stride(0), db.data_ptr(), db.stride(0),
-                     None, 0, hh, ww, stripe, bd, taps.data_ptr(), None, 0.0,
-                     0.0, out.data_ptr(), None, kernels.stream_ptr(cd)),
-                  "wiener_lr (frame mode)")
+    kernels.launch("wiener_lr", cd, cd.data_ptr(), cd.stride(0),
+                   db.data_ptr(), db.stride(0), None, 0, hh, ww, stripe, bd,
+                   taps.data_ptr(), None, 0.0, 0.0, out.data_ptr(), None,
+                   count="wiener_lr_frame")
     return out
 
 

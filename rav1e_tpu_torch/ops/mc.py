@@ -107,10 +107,8 @@ def mc_block_batch(ref_pad: torch.Tensor, margin: int, px, py, mvr, mvc,
     taps = _TAPS_DEV.get(str(dev))
     if taps is None:
         taps = _TAPS_DEV[str(dev)] = torch.as_tensor(REGULAR_TAPS, device=dev)
-    fn = kernels.lib("mc_pred").mc_pred
-    kernels.COUNTS["mc_pred"] += 1
-    kernels.check(fn(ref.data_ptr(), ref.stride(0), ref.shape[0],
-                     ref.shape[1], margin, *(a.data_ptr() for a in args), n,
-                     w, h, sub_x, sub_y, taps.data_ptr(), out.data_ptr(),
-                     kernels.stream_ptr(ref)), "mc_pred")
+    kernels.launch("mc_pred", ref, ref.data_ptr(), ref.stride(0),
+                   ref.shape[0], ref.shape[1], margin,
+                   *(a.data_ptr() for a in args), n, w, h, sub_x, sub_y,
+                   taps.data_ptr(), out.data_ptr())
     return out

@@ -355,12 +355,9 @@ def inv_txfm(coeffs: torch.Tensor, tx_type, bit_depth: int = 8) -> torch.Tensor:
     if per_block:
         types = tx_type.to(device=x.device, dtype=torch.int32).reshape(nb).contiguous()
     row_shift, col_shift = tn._inv_shifts(w, h)
-    fn = kernels.lib("inv_txfm").inv_txfm
-    kernels.COUNTS["inv_txfm"] += 1
-    kernels.check(fn(x.data_ptr(), out.data_ptr(), nb, w, h,
-                     kernels.ptr(types), 0 if per_block else int(tx_type),
-                     row_shift, col_shift, _lim(bit_depth),
-                     kernels.stream_ptr(x)), "inv_txfm")
+    kernels.launch("inv_txfm", x, x.data_ptr(), out.data_ptr(), nb, w, h,
+                   kernels.ptr(types), 0 if per_block else int(tx_type),
+                   row_shift, col_shift, _lim(bit_depth))
     return out
 
 
@@ -493,15 +490,13 @@ def _launch_fwd(x, nb, n, m, Fv, FhT, tidx, qdc, qac, shift, bit_depth,
                 float_floor, lv, dq, dist, rate, nnz, thr=None):
     Fv = Fv.to(device=x.device, dtype=torch.float32).contiguous()
     FhT = FhT.to(device=x.device, dtype=torch.float32).contiguous()
-    fn = kernels.lib("fwd_txq").fwd_txq
-    kernels.COUNTS["fwd_txq" if thr is None else "fwd_txq_thin"] += 1
-    kernels.check(fn(x.data_ptr(), nb, n, m, Fv.data_ptr(), FhT.data_ptr(),
-                     kernels.ptr(tidx), qdc.data_ptr(), qac.data_ptr(),
-                     kernels.ptr(thr), shift,
-                     QUANT_BIAS_NUM, 1 << (bit_depth + 7), float_floor,
-                     RATE_NZ, RATE_MAG, kernels.ptr(lv), kernels.ptr(dq),
-                     dist.data_ptr(), rate.data_ptr(), nnz.data_ptr(),
-                     kernels.stream_ptr(x)), "fwd_txq")
+    kernels.launch("fwd_txq", x, x.data_ptr(), nb, n, m, Fv.data_ptr(),
+                   FhT.data_ptr(), kernels.ptr(tidx), qdc.data_ptr(),
+                   qac.data_ptr(), kernels.ptr(thr), shift, QUANT_BIAS_NUM,
+                   1 << (bit_depth + 7), float_floor, RATE_NZ, RATE_MAG,
+                   kernels.ptr(lv), kernels.ptr(dq), dist.data_ptr(),
+                   rate.data_ptr(), nnz.data_ptr(),
+                   count="fwd_txq" if thr is None else "fwd_txq_thin")
 
 
 def fwd_rd_float_plain(resid, Fv, FhT, dc_q: int, ac_q: int, shift: int):

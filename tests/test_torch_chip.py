@@ -10,7 +10,8 @@ and above 8 bits cdef_dir, cdef_filter, wiener_lr in frame mode and
 me_fullpel on uint16 planes; frame_rd_maps by its tie rule;
 fwd_txq, with and without the inter race's thinning, within its
 rounding-tie share), and the paths that drive them (among them the tile
-route of Config(threads=4) with 4 tile columns).  Without a card they
+route of Config(threads=4) with 4 tile columns, also over 2 slots, and
+the sharded deblock at 8 and 10 bits).  Without a card they
 skip.  On a machine without JAX (the tests' conftest imports
 it) run them as
 
@@ -733,3 +734,73 @@ def test_tile_route_on_card():
             assert (chip_smoke._records(fe._chk_wf, r, c)
                     == chip_smoke._records(fs._chk_wf, r, c))
     assert sum(chip_smoke.rederive_tile_edges(fe) for fe in fes) > 0
+
+
+def test_multidevice_on_card(monkeypatch):
+    """deblock_sharded over 4 slots (the visible GPUs, or 4 slots on
+    cuda:0) at 8, 10 and 12 bits, luma and chroma: K4 launches twice a shard
+    and the result is identical to K4's single-device deblock_plane and to
+    deblock_np.  Then 2 key frames of 512x256 with 4 tile columns through
+    Config(threads=4) with the Context's mesh on 2 slots (two GPUs where
+    two are visible, else both on cuda:0): the bytes, recon and records
+    of the one-slot route."""
+    import chip_smoke
+    from rav1e_tpu_torch import kernels
+    from rav1e_tpu_torch.ops import deblock
+    from rav1e_tpu_torch.ops import deblock_np as dnp
+    from rav1e_tpu_torch.parallel import mesh as tmesh
+    from rav1e_tpu_torch.parallel import tiles as ttiles
+    from rav1e_tpu_torch.parallel.dryrun import default_slots
+    from rav1e_tpu_torch.utils.content import make_frames
+
+    dev = _card()
+    rng = np.random.default_rng(SEED)
+    H, W = 256, 512
+    info = dnp.DeblockInfo(H // 4, W // 4)
+    for sy in range(0, H, 64):
+        for sx in range(0, W, 64):
+            bs = int(rng.choice([8, 16, 32, 64]))
+            for y in range(sy, sy + 64, bs):
+                for x in range(sx, sx + 64, bs):
+                    info.set_block(x, y, bs, bs, bool(rng.random() < 0.3))
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    maps = [t(a) for a in (info.txw, info.txh, info.bx, info.by, info.skip)]
+    mesh = tmesh.make_mesh(4, devices=default_slots(4))
+    levels = (36, 30, 28, 20)
+    for bd in (8, 10, 12):
+        for p in (0, 1):
+            s = 0 if p == 0 else 1
+            plane = chip_smoke.flat_plane(rng, H >> s, W >> s, bd)
+            kernels.reset_counts()
+            out = ttiles.deblock_sharded(mesh, plane, info, levels, 0, p, s,
+                                         s, bd, W >> s, H >> s)
+            assert kernels.COUNTS["deblock"] == 8
+            single = deblock.deblock_plane(
+                t(plane), *maps, p, s, s, *deblock.plane_lims(levels, 0, p,
+                                                              bd), bd)
+            ref = plane.copy()
+            dnp.deblock_plane(ref, info, p, levels, 0, s, s, bd, W >> s,
+                              H >> s)
+            assert np.array_equal(single.cpu().numpy(), ref)
+            assert np.array_equal(out, ref)
+            assert not np.array_equal(ref, plane)
+
+    frames = make_frames(512, 256, 2)
+    kw = dict(check=True, size=(512, 256), tile_cols=4, tune="psnr",
+              threads=4)
+    data, recon, fes = chip_smoke.encode(frames, **kw)
+    slots = [torch.device(d) for d in default_slots(2)]
+    monkeypatch.setattr(tmesh, "slots_for", lambda _d, _n, _c: slots)
+    kernels.reset_counts()
+    data2, recon2, fes2 = chip_smoke.encode(frames, **kw)
+    assert chip_smoke.encode.key_routes == {"tiles": 2}
+    assert kernels.COUNTS["wavefront_tiles"] == 2
+    assert list(fes2[0].wavefront_mesh.slots) == slots
+    assert data2 == data
+    for a, b in zip(recon, recon2):
+        for p in range(3):
+            assert np.array_equal(np.asarray(a[p]), np.asarray(b[p]))
+    for fe, f2 in zip(fes, fes2):
+        for r, c in zip(*fe._chk_wf.geom.device_sb.nonzero()):
+            assert (chip_smoke._records(fe._chk_wf, r, c)
+                    == chip_smoke._records(f2._chk_wf, r, c))

@@ -17,8 +17,12 @@ and at speed 5 with CFL in the pass) the port,
 given the JAX fdct (the port's own may round an fp32 tie the other way),
 writes the JAX package's sharded bytes and recon; with its own fdct it
 writes the bytes of its own single-device pass, and decodes to its recon.
+The 512x128 route does so too with its 8 columns laid over 1, 2, 4 and 8
+CPU slots of the mesh (one pass a slot), against the same JAX sharded
+encode, computed once.
 """
 
+import functools
 import importlib
 
 import jax
@@ -125,8 +129,9 @@ def _jax_fdct(resid, Fv, FhT):
         jnp.asarray(FhT.numpy()))))
 
 
-def _frame_encode(pkg, w, h, q, log2, mesh_n=None, speed=6):
-    """tests/test_multichip.py's encode: (tile bytes, recon, encoder)."""
+def _frame_encode(pkg, w, h, q, log2, mesh_n=None, speed=6, slots=None):
+    """tests/test_multichip.py's encode: (tile bytes, recon, encoder); the
+    port's mesh on `slots` CPU slots (one by default)."""
     IF = importlib.import_module(pkg + ".models.intra_frame")
     M = importlib.import_module(pkg + ".parallel.mesh")
     C = importlib.import_module(pkg + ".api.config")
@@ -136,10 +141,21 @@ def _frame_encode(pkg, w, h, q, log2, mesh_n=None, speed=6):
         w, h, q_idx=q, device_modes=True, tile_cols_log2=log2, speed=speed,
         speed_settings=C.SpeedSettings.from_preset(speed), **kw)
     if mesh_n is not None:
-        fe.wavefront_mesh = M.make_mesh(mesh_n, **kw)
+        fe.wavefront_mesh = (M.make_mesh(mesh_n, ["cpu"] * (slots or 1))
+                             if kw else M.make_mesh(mesh_n))
     tile, recon = fe.encode([y.astype(np.int32), u.astype(np.int32),
                              v.astype(np.int32)])
     return tile, recon, fe
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_sharded(w, h, q, log2, speed):
+    """The JAX package's sharded encode on the virtual mesh of as many
+    devices as tile columns: (tile bytes, recon).  Kept for the tests that
+    reuse it."""
+    tile, recon, _ = _frame_encode("rav1e_tpu", w, h, q, log2, 1 << log2,
+                                   speed)
+    return tile, recon
 
 
 def _obu_stream(w, h, q, log2, tile):
@@ -167,7 +183,7 @@ def test_tile_route_matches_jax_sharded(w, h, q, log2, speed, monkeypatch):
     from rav1e_tpu_torch.models import wavefront as twf
 
     n = 1 << log2
-    jtile, jrecon, _ = _frame_encode("rav1e_tpu", w, h, q, log2, n, speed)
+    jtile, jrecon = _jax_sharded(w, h, q, log2, speed)
     flags = []
     with monkeypatch.context() as m:
         m.setattr(tt, "fdct_plain", _jax_fdct)
@@ -188,3 +204,27 @@ def test_tile_route_matches_jax_sharded(w, h, q, log2, speed, monkeypatch):
     assert own == single
     _same_recon([own_recon], [single_recon])
     _decodes_to([_obu_stream(w, h, q, log2, own)], [own_recon])
+
+
+@pytest.mark.parametrize("slots", [1, 2, 4, 8])
+def test_tile_route_over_slots_matches_jax_sharded(slots, monkeypatch):
+    """The 512x128 route with its 8 tile columns laid over `slots` CPU
+    slots (each slot one pass over its columns' lanes): given the JAX
+    fdct, the JAX sharded encode's bytes and recon, whatever the slots."""
+    from rav1e_tpu_torch.parallel import tiles as ttiles
+
+    jtile, jrecon = _jax_sharded(512, 128, 110, 3, 6)
+    passes = []
+    orig = ttiles.wfm.build_pass
+    with monkeypatch.context() as m:
+        m.setattr(tt, "fdct_plain", _jax_fdct)
+        m.setattr(ttiles.wfm, "build_pass",
+                  lambda *a, **k: passes.append(a[3]) or orig(*a, **k))
+        tile, recon, fe = _frame_encode("rav1e_tpu_torch", 512, 128, 110, 3,
+                                        8, slots=slots)
+    assert fe.wavefront_mesh.slots == (torch.device("cpu"),) * slots
+    assert fe.stats.key_routes == {"tiles": 1}
+    # one pass a slot, over its 8 / slots columns' lanes (one lane each)
+    assert passes == [8 // slots] * slots
+    assert tile == jtile
+    _same_recon([recon], [jrecon])

@@ -379,7 +379,8 @@ def test_tile_rows_take_the_host_walk():
         M = importlib.import_module(pkg + ".parallel.mesh")
         fe = IF.IntraFrameEncoder(256, 192, q_idx=140, device_modes=True,
                                   tile_cols_log2=1, tile_rows_log2=1, **kw)
-        fe.wavefront_mesh = M.make_mesh(2, **kw)
+        fe.wavefront_mesh = (M.make_mesh(2, kw["device"]) if kw
+                             else M.make_mesh(2))
         out[pkg] = fe.encode([y.astype(np.int32), u.astype(np.int32),
                               v.astype(np.int32)]) + (fe,)
         if pkg == "rav1e_tpu_torch":
