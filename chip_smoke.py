@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--profile] [--save-stream DIR]
 
 1. Prints the card's name and power limit (nvidia-smi).
-2. Builds the eleven CUDA kernels (csrc/*.cu, one nvcc each, in parallel)
+2. Builds the fourteen CUDA kernels (csrc/*.cu, one nvcc each, in parallel)
    and the native entropy library, and prints the build seconds.
 3. Drives the main path once: 8 key frames of 1920x1080 through Config ->
    Context in bench.py's keyframe configuration (speed-6 defaults, so
@@ -165,8 +165,29 @@
    else both on cuda:0): bytes, recon and its 1,000 superblock records
    must equal phase 13's one-slot route's; and dryrun_multidevice
    (parallel/dryrun.py) over MULTI_SHARDS slots.
+15. Drives the LR decision of a chain without its fused stage (PERF.md
+   row 9b) and the source-edge analysis functions, each path with the
+   counts set to 0 before it.  LR_UNFUSED_FRAMES 1080p bench key frames
+   at bench.py's speed-6 defaults with RAV1E_TPU_LR_FUSE=0 (set for the
+   encode, restored after): K7 and K8's chain mode must not launch, K8
+   must launch 3 times a frame on the unfused route (wiener_lr_decide),
+   every such call identical to wiener_lr_plain; frames/s beside phase
+   7's fused rate; --save-stream writes DIR/lr_unfused.ivf and
+   DIR/lr_unfused_recon.json.  K12 (mode_sad): frame_mode_maps of a
+   bench luma plane padded to 1920x1088 and its sharded form over
+   ANALYSIS_SHARDS slots (slabs of 256 and 288 rows at n = 32, of 272 at
+   n = 16), intra_analysis_step
+   on its 510 superblocks and its sharded form, all identical to the
+   plain version.  K13 (dr_predict): all 56 angles at each of DR_SHAPES,
+   predict_stack (K1 + K13) at n = 4 to 32.  K14 (build_edges): EDGE_LANES
+   blocks of every availability.  put_single_batch (K9) on luma, 4:2:0
+   chroma and a 10-bit plane with the SHARP filter set.  Each identical
+   to its plain version, and its largest call timed beside the plain
+   version and its bound.
 
-The line before the last is the card's name and power limit; the last is
+Before the kernels line it prints the wall seconds of phases 1-7
+together and of each later phase (phase_wall_s).  The line before the
+last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero.
 """
 
@@ -192,7 +213,7 @@ CFL_FRAMES = 2  # speed-5 key frames of content whose chroma follows luma
 GOP5_FRAMES = 4  # the speed-5 GOP: 1 key + 3 inter
 KEY_TIMED = 4  # frames of the keyframe path's timed second encode
 SB_SAMPLES = 16
-FILTER_FRAMES = 2  # frames whose whole filter chain is re-derived in numpy
+FILTER_FRAMES = 1  # frames whose whole filter chain is re-derived in numpy
 INTER_FILTER_FRAMES = 2  # inter frames of the mixed GOP re-derived so
 OFF_FRAMES = 2  # frames of the CDEF/LR-off path
 WIENER_TIE = 1e-9  # |coef * 128 - (k + .5)| where a tap may round apart
@@ -1340,7 +1361,8 @@ def mixed_gop(card: str) -> list:
     missing = [k for k, v in counts.items()
                if v == 0 and k not in ("cfl", "wiener_lr_frame",
                                        "me_fullpel_frame", "frame_rd_maps",
-                                       "wavefront_tiles")]
+                                       "wavefront_tiles", "wiener_lr_decide")
+               + ANALYSIS_KERNELS]
     if missing:
         raise RuntimeError(f"kernels not launched on the mixed path: "
                            f"{missing}")
@@ -2921,6 +2943,362 @@ def multidevice(card: str, frame, packet, frame_recon, fe,
     return results
 
 
+# phase 15: the LR decision of a chain without its fused stage (row 9b)
+# and the source-edge analysis functions (rows 10h', 11', 17-19)
+LR_UNFUSED_FRAMES = 2  # 1080p key frames with RAV1E_TPU_LR_FUSE=0
+ANALYSIS_KERNELS = ("mode_sad", "dr_predict", "build_edges")
+ANALYSIS_SHARDS = 4
+ANALYSIS_QIDX = 100
+DR_SHAPES = ((8, 8), (16, 16), (32, 32), (8, 16), (16, 8))  # (w, h)
+DR_LANES = 64  # lanes an angle: 3,584 a shape
+STACK_LANES = 1024
+EDGE_LANES = 4096
+PUT_BLOCKS = 1024
+# operations a sample of each CANDIDATES prediction in K12 (DC, V, H come
+# from the edges; SMOOTH 4 multiplies, 5 adds, a shift; PAETH 3
+# differences, 3 absolutes, 2 compares and the pick; a zone-2 angle its
+# position, shift, mask, two clamps, two multiplies, two adds, a shift)
+MODE_SAD_PRED_OPS = (0, 0, 0, 12, 6, 6, 10, 12, 12, 12)
+DR_OPS = 12  # a K13 sample: position, shift, mask, clamps, 2 taps, round
+EDGE_OPS = 12  # a K14 edge index: the clamps, the reach and the selects
+
+
+def _mode_sad_work(B, hh, ww, n, count) -> tuple:
+    """K12: the int32 planes read once, two int32 words a block out; each
+    sample's predictions and their SAD terms (SAD_OPS) per candidate."""
+    samples = B * hh * ww
+    return (samples * 4 + samples // (n * n) * 8,
+            samples * (sum(MODE_SAD_PRED_OPS[:count]) + count * SAD_OPS))
+
+
+def _dr_work(B, w, h) -> tuple:
+    """K13: both int32 edge vectors and the angle read once, the int32
+    prediction written once."""
+    return (B * (2 * (1 + w + h) + 1) * 4 + B * w * h * 4,
+            B * w * h * DR_OPS)
+
+
+def _edges_work(B, w, h) -> tuple:
+    """K14: six int32 words a lane in, and at each edge index the two
+    plane samples it reads and the two int32 samples it writes."""
+    n = 1 + w + h
+    return B * 6 * 4 + B * n * 16, B * n * EDGE_OPS
+
+
+def analysis(card: str, key_fps: float, device: str = "cuda") -> list:
+    """Phase 15 of the module docstring.  key_fps: the fused route's timed
+    speed-6 key-frame rate (phase 7).  Returns the kernels JSON entries of
+    K8 on the unfused LR route, K12, K13, K14 and K9 through
+    put_single_batch."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from rav1e_tpu_torch import kernels
+    from rav1e_tpu_torch.models import device_pipeline as dp
+    from rav1e_tpu_torch.ops import intra, lrf, mc
+    from rav1e_tpu_torch.parallel import mesh as tmesh
+    from rav1e_tpu_torch.parallel.dryrun import default_slots
+    from rav1e_tpu_torch.utils.content import make_frames, make_planes
+    from rav1e_tpu_torch.utils.stream_check import recon_digest
+
+    t_phase = time.perf_counter()
+    results = []
+
+    # -- row 9b: speed-6 key frames with the fused LR stage switched off
+    frames = make_frames(W, H, LR_UNFUSED_FRAMES)
+    cap = Capture(keep=("wiener_lr",))
+    decided = []
+    orig_decide = lrf.lr_decide_device
+
+    def decide(fe, taps_y, taps_c):
+        res = orig_decide(fe, taps_y, taps_c)
+        decided.append(None if res is None else
+                       {p: int(c.sum()) for p, c in res[1].items()})
+        return res
+
+    lrf.lr_decide_device = decide
+    prev = os.environ.get("RAV1E_TPU_LR_FUSE")
+    os.environ["RAV1E_TPU_LR_FUSE"] = "0"
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        data, recon, _ = encode(frames, check=False, device=device)
+        torch.cuda.synchronize()
+    finally:
+        if prev is None:
+            os.environ.pop("RAV1E_TPU_LR_FUSE")
+        else:
+            os.environ["RAV1E_TPU_LR_FUSE"] = prev
+        lrf.lr_decide_device = orig_decide
+        cap.restore()
+    t_enc = time.perf_counter() - t0
+    counts = dict(kernels.COUNTS)
+    lr_calls = [(a, k, out) for a, k, out in cap.every["wiener_lr"]
+                if k.get("count") == "wiener_lr_decide"]
+    if (len(decided) != len(frames) or None in decided
+            or len(lr_calls) != 3 * len(frames)):
+        raise RuntimeError(f"the unfused LR route: decisions {decided}, "
+                           f"{len(lr_calls)} K8 calls for {len(frames)} "
+                           "frames (3 a frame)")
+    if device == "cuda" and (counts["wiener_lr_decide"] != 3 * len(frames)
+                             or counts["wiener_lr"] or counts["wiener_solve"]):
+        raise RuntimeError(f"the unfused LR route's launches: {counts}")
+    lr_errs = []
+    for a, _k, out in lr_calls:
+        ref = lrf.wiener_lr_plain(*a[:10])
+        lr_errs.append(max(int((out[0] - ref[0]).abs().max()),
+                           int((out[1] != ref[1]).sum())))
+    if any(lr_errs):
+        raise RuntimeError(f"wiener_lr_decide differs from wiener_lr_plain: "
+                           f"{lr_errs}")
+    digests = [recon_digest(r) for r in recon]
+    save_stream("lr_unfused", data, {"recon_sha256": digests})
+    a, k, _ = max(lr_calls, key=lambda c: c[0][8] * c[0][9])
+    lr_work = _wiener_lr_work(a, k)
+    lr_t = {"ms": cuda_ms(lambda: lrf.wiener_lr(*a, **k)),
+            "plain_ms": cuda_ms(lambda: lrf.wiener_lr_plain(*a[:10]),
+                                reps=3)}
+    print(json.dumps({"lr_unfused": {
+        "frames": len(frames), "seconds": t_enc,
+        "fps": len(frames) / t_enc, "fused_timed_fps": key_fps,
+        "wiener_units_by_plane": decided,
+        "wiener_lr_decide_launches": counts["wiener_lr_decide"],
+        "max_abs_err": lr_errs, "decode": check_decode(data, recon),
+        "recon_sha256": digests, "bytes": sum(map(len, data)),
+        "card": card}}))
+    entry = make_entry(results, {"wiener_lr_decide":
+                                 counts["wiener_lr_decide"]}, len(frames))
+    entry("wiener_lr_decide", "rav1e_tpu_torch/csrc/wiener_lr.cu",
+          "rav1e_tpu/ops/lrf_jax.py:115", max(lr_errs), lr_t["ms"],
+          lr_t["plain_ms"], lr_work)
+
+    # -- K12: the SAD mode maps of a 1080p bench luma plane padded to
+    # whole superblocks, its superblocks' step, and both over slots
+    y = make_planes(W, H, 1)[0][0].astype(np.int32)
+    hp, wp = (H + 63) & ~63, (W + 63) & ~63
+    yp = np.pad(y, ((0, hp - H), (0, wp - W)), mode="edge")
+    yt = torch.as_tensor(yp, device=device)
+    sbs = yt.reshape(hp // 64, 64, wp // 64, 64).transpose(1, 2).reshape(
+        -1, 64, 64).contiguous()
+    slots = (default_slots(ANALYSIS_SHARDS) if device == "cuda"
+             else [device] * ANALYSIS_SHARDS)
+    mesh = tmesh.make_mesh(ANALYSIS_SHARDS, devices=slots)
+    kernels.reset_counts()
+    maps = dp.frame_mode_maps(yp, device=device)
+    sharded = {n: dp.sharded_mode_analysis(mesh, yt, n) for n in (32, 16)}
+    torch.cuda.synchronize()
+    maps_launches = kernels.COUNTS["mode_sad"]
+    step = dp.intra_analysis_step(sbs, ANALYSIS_QIDX)
+    sharded_step = dp.sharded_intra_analysis(mesh, sbs, ANALYSIS_QIDX)
+    torch.cuda.synchronize()
+    step_launches = kernels.COUNTS["mode_sad"] - maps_launches
+    if device == "cuda" and not (maps_launches and step_launches):
+        raise RuntimeError(f"K12 launches: maps {maps_launches}, step "
+                           f"{step_launches}")
+    ids = torch.as_tensor(dp.CANDIDATES, dtype=torch.int32, device=device)
+    sad_errs = {}
+    for n in (32, 16):
+        idx, sad = dp.mode_sad_plain(yt[None], n)
+        ref = (ids[idx[0].long()].cpu().numpy(), sad[0].cpu().numpy())
+        sad_errs[f"frame_n{n}"] = sum(
+            int((np.asarray(g) != r).sum()) for g, r in zip(maps[n], ref))
+        sad_errs[f"sharded_n{n}"] = sum(
+            int((g.cpu().numpy() != r).sum()) for g, r in zip(sharded[n], ref))
+    bias = 2 + (ANALYSIS_QIDX >> 5)
+    step_ref = dp.mode_sad_plain(sbs, 8, 3)[1] + bias
+    sad_errs["step"] = int((step != step_ref).sum())
+    sad_errs["sharded_step"] = int((sharded_step.to(step_ref.device)
+                                    != step_ref).sum())
+    if any(sad_errs.values()):
+        raise RuntimeError(f"K12 differs from its plain version: {sad_errs}")
+    yb = yt[None]
+    sad_t = {"ms": cuda_ms(lambda: dp.mode_sad(yb, 16)),
+             "plain_ms": cuda_ms(lambda: dp.mode_sad_plain(yb, 16), reps=3),
+             "sb_ms": cuda_ms(lambda: dp.mode_sad(sbs, 8, 3)),
+             "sb_plain_ms": cuda_ms(lambda: dp.mode_sad_plain(sbs, 8, 3),
+                                    reps=3),
+             "sharded_ms": cuda_ms(
+                 lambda: dp.sharded_mode_analysis(mesh, yt, 16), reps=5)}
+    modes = np.bincount(maps[16][0].ravel(), minlength=13)
+    print(json.dumps({"mode_analysis": {
+        "plane": f"{wp}x{hp}", "superblocks": int(sbs.shape[0]),
+        "slots": [str(d) for d in mesh.slots],
+        "maps_launches": maps_launches, "step_launches": step_launches,
+        "mismatches": sad_errs, "modes_n16": modes.tolist(), **sad_t,
+        "card": card}}))
+    entry = make_entry(results, {"mode_sad": maps_launches,
+                                 "mode_sad_sb": step_launches}, 1)
+    entry("mode_sad", "rav1e_tpu_torch/csrc/mode_sad.cu",
+          "rav1e_tpu/models/device_pipeline.py:118", 0, sad_t["ms"],
+          sad_t["plain_ms"], _mode_sad_work(1, hp, wp, 16, 10))
+    entry("mode_sad_sb", "rav1e_tpu_torch/csrc/mode_sad.cu",
+          "rav1e_tpu/models/device_pipeline.py:351", 0, sad_t["sb_ms"],
+          sad_t["sb_plain_ms"], _mode_sad_work(sbs.shape[0], 64, 64, 8, 3))
+
+    # -- K13: every directional angle, and the 13-mode stack over K1 + K13
+    rng = np.random.default_rng(15)
+    t = lambda v: torch.as_tensor(np.ascontiguousarray(v), device=device)
+
+    def edges(B, w, h):
+        above = rng.integers(0, 256, (B, 1 + w + h)).astype(np.int32)
+        left = rng.integers(0, 256, (B, 1 + w + h)).astype(np.int32)
+        left[:, 0] = above[:, 0]
+        return t(above), t(left)
+
+    angles = intra.DIR_ANGLES.reshape(-1)
+    dr_args = [(*edges(len(angles) * DR_LANES, w, h),
+                t(np.tile(angles, DR_LANES).astype(np.int32)), w, h)
+               for w, h in DR_SHAPES]
+    stack_args = [(*edges(STACK_LANES, n, n), n, n,
+                   t(rng.random(STACK_LANES) < 0.7),
+                   t(rng.random(STACK_LANES) < 0.7)) for n in (4, 8, 16, 32)]
+    kernels.reset_counts()
+    dr_out = [intra.dr_predict_batch(*a) for a in dr_args]
+    stack_out = [intra.predict_stack(*a) for a in stack_args]
+    torch.cuda.synchronize()
+    dr_launches = kernels.COUNTS["dr_predict"]
+    if device == "cuda" and dr_launches != len(dr_args) + len(stack_args):
+        raise RuntimeError(f"K13 launches: {dr_launches}")
+
+    def stack_plain(above, left, w, h, ha, hl):
+        nd = intra.intra_pred_plain(above, left, ha, hl, w, False)
+        out = torch.empty((above.shape[0], 13, h, w), dtype=torch.int32,
+                          device=above.device)
+        for ch, m in enumerate((intra.DC, intra.V, intra.H, intra.SMOOTH,
+                                intra.SMOOTH_V, intra.SMOOTH_H,
+                                intra.PAETH)):
+            out[:, m] = nd[:, ch]
+        for m in intra.STACK_DIRS:
+            ang = torch.full((above.shape[0],), intra.ip.MODE_ANGLE[m],
+                             dtype=torch.int32, device=above.device)
+            out[:, m] = intra.dr_predict_plain(above, left, ang, w, h)
+        return out
+
+    dr_errs = [int((o - intra.dr_predict_plain(*a)).abs().max())
+               for a, o in zip(dr_args, dr_out)]
+    stack_errs = [int((o - stack_plain(*a)).abs().max())
+                  for a, o in zip(stack_args, stack_out)]
+    if any(dr_errs) or any(stack_errs):
+        raise RuntimeError(f"K13 differs from its plain version: {dr_errs}, "
+                           f"predict_stack {stack_errs}")
+    big = dr_args[DR_SHAPES.index((32, 32))]
+    dr_t = {"ms": cuda_ms(lambda: intra.dr_predict_batch(*big)),
+            "plain_ms": cuda_ms(lambda: intra.dr_predict_plain(*big), reps=3),
+            "stack_n32_ms": cuda_ms(lambda: intra.predict_stack(
+                *stack_args[-1])),
+            "stack_n32_plain_ms": cuda_ms(lambda: stack_plain(
+                *stack_args[-1]), reps=3),
+            # the (B, 13, 32, 32) int32 stack written, both edges read
+            "stack_n32_bound_ms": bound_ms(
+                STACK_LANES * (13 * 32 * 32 + 2 * 65) * 4 + STACK_LANES * 2,
+                STACK_LANES * 13 * 32 * 32 * DR_OPS)}
+    print(json.dumps({"dr_predict": {
+        "shapes": [f"{w}x{h}" for w, h in DR_SHAPES],
+        "lanes": len(angles) * DR_LANES, "launches": dr_launches,
+        "max_abs_err": dr_errs, "predict_stack_max_abs_err": stack_errs,
+        **dr_t, "card": card}}))
+    entry = make_entry(results, {"dr_predict": dr_launches}, 1)
+    entry("dr_predict", "rav1e_tpu_torch/csrc/dr_predict.cu",
+          "rav1e_tpu/ops/intra_jax.py:144", max(dr_errs + stack_errs),
+          dr_t["ms"], dr_t["plain_ms"], _dr_work(big[0].shape[0], 32, 32))
+
+    # -- K14: the edges of blocks of every availability over the plane
+    w = h = 16
+    B = EDGE_LANES
+    ys = (rng.integers(0, H // h, B) * h).astype(np.int32)
+    xs = (rng.integers(0, W // w, B) * w).astype(np.int32)
+    ys[:4], xs[:4] = (0, 0, H - h, H - h), (0, W - w, 0, W - w)
+    edge_args = (t(y), t(ys), t(xs), w, h, t(np.arange(B) % 2 == 0),
+                 t(np.arange(B) % 4 < 2),
+                 t((rng.integers(0, 3, B) * (w // 2)).astype(np.int32)),
+                 t((rng.integers(0, 3, B) * (h // 2)).astype(np.int32)),
+                 W - 1, H - 1, 8)
+    kernels.reset_counts()
+    got = intra.build_edges_batch(*edge_args)
+    torch.cuda.synchronize()
+    edge_launches = kernels.COUNTS["build_edges"]
+    if device == "cuda" and edge_launches != 1:
+        raise RuntimeError(f"K14 launches: {edge_launches}")
+    ref = intra.build_edges_plain(*edge_args)
+    edge_err = max(int((g - r).abs().max()) for g, r in zip(got, ref))
+    if edge_err:
+        raise RuntimeError(f"K14 differs from its plain version: {edge_err}")
+    edge_t = {"ms": cuda_ms(lambda: intra.build_edges_batch(*edge_args)),
+              "plain_ms": cuda_ms(lambda: intra.build_edges_plain(*edge_args),
+                                  reps=3)}
+    print(json.dumps({"build_edges": {"lanes": B, "launches": edge_launches,
+                                      "max_abs_err": edge_err, **edge_t,
+                                      "card": card}}))
+    entry = make_entry(results, {"build_edges": edge_launches}, 1)
+    entry("build_edges", "rav1e_tpu_torch/csrc/build_edges.cu",
+          "rav1e_tpu/ops/intra_jax.py:44", edge_err, edge_t["ms"],
+          edge_t["plain_ms"], _edges_work(B, w, h))
+
+    # -- row 10h': put_single_batch (K9) on luma, 4:2:0 chroma, 10 bits
+    y10 = make_planes(W, H, 1, bit_depth=10)[0][0]
+    u8 = make_planes(W, H, 1)[0][1]
+    put_cases = (("luma", y, 0, 8, 0, 16), ("chroma420", u8, 1, 8, 0, 8),
+                 ("10bit", y10, 0, 10, 2, 32))
+    lim = mc.MV_LIMIT
+    put_args = []
+    for name, plane, sub, bd, fset, n in put_cases:
+        ph, pw = plane.shape
+        blocks = np.stack([rng.integers(0, pw - n + 1, PUT_BLOCKS),
+                           rng.integers(0, ph - n + 1, PUT_BLOCKS)], 1)
+        mvs = rng.integers(-lim, lim + 1, (PUT_BLOCKS, 2))
+        put_args.append((name, (plane, blocks, mvs, n, n, sub, sub, bd,
+                                fset)))
+    kernels.reset_counts()
+    put_out = [mc.put_single_batch(*a, device=device) for _n, a in put_args]
+    torch.cuda.synchronize()
+    put_launches = kernels.COUNTS["mc_pred"]
+    if device == "cuda" and put_launches != len(put_args):
+        raise RuntimeError(f"K9 launches through put_single_batch: "
+                           f"{put_launches}")
+
+    def put_inputs(plane, blocks, mvs, w, h, sub_x, sub_y, bd, fset):
+        """put_single_batch's padded plane and lanes on the card (its
+        kernel's arguments, with the plain version's int32 plane)."""
+        pad = mc.pad_ref_plane(plane, mc.MC_MARGIN,
+                               ((plane.shape[0] + 63) & ~63) + 64,
+                               ((plane.shape[1] + 63) & ~63) + 64)
+        lanes = [t(np.asarray(v, np.int32)) for v in
+                 (blocks[:, 0], blocks[:, 1], mvs[:, 0], mvs[:, 1])]
+        dtype = np.uint8 if bd == 8 else np.uint16
+        return ((t(pad.astype(dtype)), mc.MC_MARGIN, *lanes, w, h, sub_x,
+                 sub_y, bd, mc.filter_taps(fset)),
+                (t(pad), mc.MC_MARGIN, *lanes, w, h, sub_x, sub_y, bd,
+                 mc.filter_taps(fset)))
+
+    put_errs = {}
+    for (name, a), out in zip(put_args, put_out):
+        _kern, plain = put_inputs(*a)
+        put_errs[name] = int(np.abs(
+            out - mc.mc_block_batch_plain(*plain).cpu().numpy()).max())
+    if any(put_errs.values()):
+        raise RuntimeError(f"put_single_batch differs from K9's plain "
+                           f"version: {put_errs}")
+    kern, plain = put_inputs(*put_args[-1][1])
+    put_t = {"ms": cuda_ms(lambda: mc.mc_block_batch(*kern)),
+             "plain_ms": cuda_ms(lambda: mc.mc_block_batch_plain(*plain),
+                                 reps=3),
+             "wrapper_ms": cuda_ms(lambda: mc.put_single_batch(
+                 *put_args[-1][1], device=device), reps=3)}
+    print(json.dumps({"put_single_batch": {
+        "cases": [n for n, _a in put_args], "blocks": PUT_BLOCKS,
+        "launches": put_launches, "max_abs_err": put_errs, **put_t,
+        "card": card}}))
+    entry = make_entry(results, {"mc_pred_put": put_launches}, 1)
+    entry("mc_pred_put", "rav1e_tpu_torch/csrc/mc_pred.cu",
+          "rav1e_tpu/ops/mc_jax.py:109", max(put_errs.values()),
+          put_t["ms"], put_t["plain_ms"], _mc_work(kern, {}))
+    print(json.dumps({"analysis_phase_s": time.perf_counter() - t_phase,
+                      "card": card}))
+    return results
+
+
 def main() -> int:
     try:
         import torch
@@ -2942,7 +3320,7 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}")
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     secs = kernels.build_all(force=True)
     t_nvcc = time.perf_counter() - t0
     from rav1e_tpu_torch.ec import native
@@ -3020,21 +3398,30 @@ def main() -> int:
     t_enc = time.perf_counter() - t4
     if data2 != data[:KEY_TIMED]:
         raise RuntimeError("the second encode wrote other bytes")
+    key_fps = KEY_TIMED / t_enc
     print(json.dumps({"encode": {"frames": KEY_TIMED, "size": f"{W}x{H}",
-                                 "seconds": t_enc, "fps": KEY_TIMED / t_enc,
+                                 "seconds": t_enc, "fps": key_fps,
                                  "stages_s": encode.stages, "card": card}}))
     print(json.dumps({"breakdown": breakdown(frames[:4],
                                              "--profile" in sys.argv),
                       "card": card}))
     print(json.dumps({"cdef_decide": time_cdef_decide(cap.calls),
                       "card": card}))
-    results += mixed_gop(card)
-    results += speed5(card)
-    results += default_gop(card)
-    results += hbd_gop(card)
-    results += speed3(card)
-    results += tiles(card)
-    results += multidevice(card, *tiles.first)
+    # each later phase's wall seconds, beside phases 1-7's together
+    walls = {"phases_1_7": time.perf_counter() - t_start}
+    for name, phase in (
+            ("8_mixed_gop", lambda: mixed_gop(card)),
+            ("9_speed5", lambda: speed5(card)),
+            ("10_default_gop", lambda: default_gop(card)),
+            ("11_hbd_gop", lambda: hbd_gop(card)),
+            ("12_speed3", lambda: speed3(card)),
+            ("13_tiles", lambda: tiles(card)),
+            ("14_multidevice", lambda: multidevice(card, *tiles.first)),
+            ("15_analysis", lambda: analysis(card, key_fps))):
+        t_ph = time.perf_counter()
+        results += phase()
+        walls[name] = time.perf_counter() - t_ph
+    print(json.dumps({"phase_wall_s": walls, "card": card}))
     print(json.dumps({"parity": {r["name"]: r["max_abs_err"]
                                  for r in results}}))
     if any(m == "jax" or m.startswith("jax.") or m == "rav1e_tpu"

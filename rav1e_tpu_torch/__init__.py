@@ -35,12 +35,17 @@ the JAX package's do, and not decode to the recon (ROADMAP fault F6);
 FrameEncoder still codes them as the JAX package does, for the parity
 tests.  4:2:2 and 4:4:4 frames encode
 through the same host paths (without CDEF, as in the JAX package) but
-are not yet held against it (ROADMAP queue 1 item 10b).  What raises
-NotImplementedError names its ROADMAP item: segmentation on inter
-wavefront frames: queue 1 item 10; the loop-restoration decision from
-the device planes of a chain without its LR stage (lr_decide_device):
-queue 1 item 10; tile columns spread over several GPUs (a mesh whose
-shards lie on other devices than the frame's): queue 2 item 16b.
+are not yet held against it (ROADMAP queue 1 item 10b).  With
+RAV1E_TPU_LR_FUSE=0 (the JAX package's switch of the same name) the
+filter chain runs without its fused loop-restoration stage: the Wiener
+taps are solved on the host and each unit's decision runs on the planes
+the chain kept on the card (ops/lrf.py lr_decide_device).  The
+source-edge analysis functions of the JAX package that no encode path
+calls are here too: models/device_pipeline.py mode_analysis,
+frame_mode_maps, intra_analysis_step and their sharded forms,
+ops/intra.py dr_predict_batch, predict_stack, build_edges_batch and
+ops/mc.py put_single_batch.  What raises NotImplementedError names its
+ROADMAP item: segmentation on inter wavefront frames: queue 1 item 10.
 
 Layout:
   api/      Config / Context / EncoderStatus public API

@@ -15,9 +15,13 @@
 //      rounded (x + 4) >> 3 (InterRound0 = 3);
 //   3. the vertical pass rounds (x + 1024) >> 11 (InterRound1 = 11),
 //      clips to [0, 255] and writes the int32 prediction.
-// The 1/16-pel phase is start & 15 per axis; the 16 x 8 REGULAR tap table
-// sits in constant memory (copied from the caller's device table on the
-// launch's stream).  Window coordinates are clamped to the
+// Above 8 bits (put_single_batch, mc_jax.py:116) the plane is uint16 and
+// the passes round by 3 and 11 (10-bit) or 5 and 9 (12-bit, InterRound0
+// = 5) and clip to (1 << bd) - 1.
+// The 1/16-pel phase is start & 15 per axis; the caller's 16 x 8 tap
+// table (REGULAR on the encode path, any filter set through
+// put_single_batch) sits in constant memory (copied from the caller's
+// device table on the launch's stream).  Window coordinates are clamped to the
 // plane so a read can never leave it; the caller's MV clip and margin keep
 // every window inside, so the clamp never changes a sample (the plain
 // version asserts it).
@@ -34,13 +38,14 @@ namespace {
 constexpr int THREADS = 256;
 __constant__ int32_t c_taps[16 * 8];
 
-__global__ void mc_pred_kernel(const uint8_t *__restrict__ ref, int stride,
+template <typename T>
+__global__ void mc_pred_kernel(const T *__restrict__ ref, int stride,
                                int ref_h, int ref_w, int margin,
                                const int32_t *__restrict__ px,
                                const int32_t *__restrict__ py,
                                const int32_t *__restrict__ mvr,
                                const int32_t *__restrict__ mvc, int w, int h,
-                               int sub_x, int sub_y,
+                               int sub_x, int sub_y, int bd,
                                int32_t *__restrict__ out) {
     extern __shared__ int32_t sm[];
     const int ww = w + 7, wh = h + 7;
@@ -58,6 +63,8 @@ __global__ void mc_pred_kernel(const uint8_t *__restrict__ ref, int stride,
         win[i] = ref[(size_t)r * stride + c];
     }
     __syncthreads();
+    const int round0 = bd < 12 ? 3 : 5, round1 = 14 - round0;
+    const int hi = (1 << bd) - 1;
     const int32_t *tx = c_taps + fx * 8;
     const int32_t *ty = c_taps + fy * 8;
     for (int i = tid; i < wh * w; i += THREADS) {
@@ -66,7 +73,7 @@ __global__ void mc_pred_kernel(const uint8_t *__restrict__ ref, int stride,
         int32_t acc = 0;
 #pragma unroll
         for (int t = 0; t < 8; t++) acc += tx[t] * s[t];
-        mid[i] = (acc + 4) >> 3;
+        mid[i] = (acc + (1 << (round0 - 1))) >> round0;
     }
     __syncthreads();
     int32_t *o = out + (size_t)b * h * w;
@@ -76,16 +83,16 @@ __global__ void mc_pred_kernel(const uint8_t *__restrict__ ref, int stride,
         int32_t acc = 0;
 #pragma unroll
         for (int t = 0; t < 8; t++) acc += ty[t] * s[t * w];
-        o[i] = min(max((acc + 1024) >> 11, 0), 255);
+        o[i] = min(max((acc + (1 << (round1 - 1))) >> round1, 0), hi);
     }
 }
 
 }  // namespace
 
-extern "C" int mc_pred(const void *ref, int stride, int ref_h, int ref_w,
-                       int margin, const void *px, const void *py,
+extern "C" int mc_pred(const void *ref, int elt, int stride, int ref_h,
+                       int ref_w, int margin, const void *px, const void *py,
                        const void *mvr, const void *mvc, int n_blocks, int w,
-                       int h, int sub_x, int sub_y, const void *taps,
+                       int h, int sub_x, int sub_y, int bd, const void *taps,
                        void *out, void *stream) {
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t e = cudaMemcpyToSymbolAsync(c_taps, taps, sizeof(int32_t) * 128,
@@ -94,10 +101,18 @@ extern "C" int mc_pred(const void *ref, int stride, int ref_h, int ref_w,
     if (n_blocks > 0) {
         const size_t smem = sizeof(int32_t) * ((size_t)(h + 7) * (w + 7)
                                                + (size_t)(h + 7) * w);
-        mc_pred_kernel<<<n_blocks, THREADS, smem, s>>>(
-            (const uint8_t *)ref, stride, ref_h, ref_w, margin,
-            (const int32_t *)px, (const int32_t *)py, (const int32_t *)mvr,
-            (const int32_t *)mvc, w, h, sub_x, sub_y, (int32_t *)out);
+        if (elt == 1)
+            mc_pred_kernel<uint8_t><<<n_blocks, THREADS, smem, s>>>(
+                (const uint8_t *)ref, stride, ref_h, ref_w, margin,
+                (const int32_t *)px, (const int32_t *)py,
+                (const int32_t *)mvr, (const int32_t *)mvc, w, h, sub_x,
+                sub_y, bd, (int32_t *)out);
+        else
+            mc_pred_kernel<uint16_t><<<n_blocks, THREADS, smem, s>>>(
+                (const uint16_t *)ref, stride, ref_h, ref_w, margin,
+                (const int32_t *)px, (const int32_t *)py,
+                (const int32_t *)mvr, (const int32_t *)mvc, w, h, sub_x,
+                sub_y, bd, (int32_t *)out);
     }
     return (int)cudaGetLastError();
 }

@@ -33,7 +33,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 KERNELS = ("intra_pred", "fwd_txq", "inv_txfm", "deblock", "cdef_dir",
            "cdef_filter", "wiener_solve", "wiener_lr", "mc_pred", "me_fullpel",
-           "cfl")
+           "cfl", "mode_sad", "dr_predict", "build_edges")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -41,13 +41,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # level-1 thinning of the inter race, "wiener_lr_frame" for wiener_lr's
 # launches in frame mode (the whole restored plane, no unit choice) and
 # "me_fullpel_frame" for me_fullpel's launches from the host inter path's
-# frame_me_map; "frame_rd_maps" counts that route's calls on the card
-# (each launches intra_pred and fwd_txq twice, at n = 32 and 16), and
-# "wavefront_tiles" the key frames whose pass ran on the card over their
-# tile columns (parallel/tiles.py; K1-K3 and K11 launch inside it)
+# frame_me_map, "wiener_lr_decide" for wiener_lr's launches from the LR
+# decision of a chain without its LR stage (ops/lrf.py lr_decide_device);
+# "frame_rd_maps" counts that route's calls on the card (each launches
+# intra_pred and fwd_txq twice, at n = 32 and 16), and "wavefront_tiles"
+# the key frames whose pass ran on the card over their tile columns
+# (parallel/tiles.py; K1-K3 and K11 launch inside it)
 COUNTS = {k: 0 for k in KERNELS + ("fwd_txq_thin", "wiener_lr_frame",
-                                   "me_fullpel_frame", "frame_rd_maps",
-                                   "wavefront_tiles")}
+                                   "wiener_lr_decide", "me_fullpel_frame",
+                                   "frame_rd_maps", "wavefront_tiles")}
 # nvcc's output of the last build of each kernel (ptxas: registers, spills)
 BUILD_LOGS: dict = {}
 _LIBS: dict = {}
@@ -70,16 +72,22 @@ ARGTYPES = {
                                                           _vp],
     "wiener_lr": [_vp, _ci, _vp, _ci, _vp, _ci, _ci, _ci, _ci, _ci, _vp, _vp,
                   _cf, _cf, _vp, _vp, _vp],
-    "mc_pred": [_vp, _ci, _ci, _ci, _ci, _vp, _vp, _vp, _vp, _ci, _ci, _ci,
-                _ci, _ci, _vp, _vp, _vp],
+    "mc_pred": [_vp, _ci, _ci, _ci, _ci, _ci, _vp, _vp, _vp, _vp, _ci, _ci,
+                _ci, _ci, _ci, _ci, _vp, _vp, _vp],
     "me_fullpel": [_vp, _ci, _vp, _ci, _ci, _ci, _ci, _vp, _vp, _vp],
     "cfl": [_vp, _ci, _ci, _vp, _vp, _ci, _vp, _vp, _vp, _vp],
+    "mode_sad": [_vp, _ci, _ci, _ci, _vp, _ci, _ci, _vp, _vp, _vp, _vp, _vp],
+    "dr_predict": [_vp, _vp, _vp, _ci, _ci, _ci, _vp, _vp, _vp],
+    "build_edges": [_vp, _ci, _ci, _ci] + [_vp] * 6 + [_ci] * 6
+    + [_vp, _vp, _vp],
 }
 _ENTRY = {"intra_pred": "intra_pred", "fwd_txq": "fwd_txq",
           "inv_txfm": "inv_txfm", "deblock": "deblock_pass",
           "cdef_dir": "cdef_dir", "cdef_filter": "cdef_filter",
           "wiener_solve": "wiener_solve", "wiener_lr": "wiener_lr",
-          "mc_pred": "mc_pred", "me_fullpel": "me_fullpel", "cfl": "cfl"}
+          "mc_pred": "mc_pred", "me_fullpel": "me_fullpel", "cfl": "cfl",
+          "mode_sad": "mode_sad", "dr_predict": "dr_predict",
+          "build_edges": "build_edges"}
 
 
 def reset_counts() -> None:

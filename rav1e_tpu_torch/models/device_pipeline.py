@@ -21,9 +21,13 @@ above 8 bits.  The same search serves the host inter path of the frames
 outside the inter wavefront (frame_me_map: one map a reference, over the
 edge-padded reference plane, uint8 or uint16 samples).
 
-The SAD mode maps (mode_analysis, frame_mode_maps) and the sharded
-analysis steps of the JAX module have no caller on any path and are not
-ported (ROADMAP queue 1 item 12).
+And the SAD mode analysis (mode_sad, K12): the best of the same 10
+source-edge candidates (or of DC, V and H) by SAD for every n x n block,
+with no prediction written to device memory; over it mode_analysis and
+frame_mode_maps, the superblock step intra_analysis_step, and their
+sharded forms over a parallel/mesh.py Mesh (sharded_intra_analysis,
+sharded_mode_analysis, whose shards read their first row's edge from a
+halo row copied from the previous shard).
 """
 
 from __future__ import annotations
@@ -55,18 +59,22 @@ def _fwd_mats(n: int, device):
                                                                device=device)
 
 
-def source_edges(y: torch.Tensor, n: int):
-    """(blocks (by, bx, n, n), above, left (by*bx, 2n+1)) edge vectors from
-    the source plane itself, 128 outside it; entries past n repeat the
-    last sample (no candidate here reads them)."""
-    Hh, Ww = y.shape
+def source_edges(y: torch.Tensor, n: int, above_row=None):
+    """(blocks (..., by, bx, n, n), above, left (... * by * bx, 2n+1))
+    edge vectors of the planes y (..., H, W) from the planes themselves,
+    128 outside them, or for the first block row from above_row (..., W),
+    the row above the plane where given; entries past n repeat the last
+    sample (no candidate here reads them)."""
+    *lead, Hh, Ww = y.shape
     by, bx = Hh // n, Ww // n
-    blocks = y.reshape(by, n, bx, n).permute(0, 2, 1, 3)
+    blocks = y.reshape(*lead, by, n, bx, n).transpose(-3, -2)
     pad = torch.nn.functional.pad(y, (1, 0, 1, 0), value=128)
-    above = pad[0:Hh:n, 1:].reshape(by, bx, n)
-    left = pad[1:, 0:Ww:n].reshape(by, n, bx).transpose(1, 2)
-    topleft = pad[0:Hh:n, 0:Ww:n].reshape(by, bx, 1)
-    ext = lambda a: torch.cat([topleft, a, a[..., -1:].expand(by, bx, n)], -1)
+    if above_row is not None:
+        pad[..., 0, 1:] = above_row
+    above = pad[..., 0:Hh:n, 1:].reshape(*lead, by, bx, n)
+    left = pad[..., 1:, 0:Ww:n].reshape(*lead, by, n, bx).transpose(-1, -2)
+    topleft = pad[..., 0:Hh:n, 0:Ww:n].reshape(*lead, by, bx, 1)
+    ext = lambda a: torch.cat([topleft, a, a[..., -1:].expand_as(a)], -1)
     return blocks, ext(above).reshape(-1, 2 * n + 1), \
         ext(left).reshape(-1, 2 * n + 1)
 
@@ -172,6 +180,120 @@ def frame_rd_maps(y_plane: np.ndarray, dc_q: int, ac_q: int, lam: float,
            for n, (m, c, z) in ((32, m32), (16, m16))}
     out["split32"] = split.cpu().numpy()
     return out
+
+
+# -- SAD mode analysis (K12) ---------------------------------------------------
+
+def mode_sad_plain(planes: torch.Tensor, n: int, count: int = 10,
+                   above_row=None):
+    """Plain version of K12: the candidates predicted by K1's plain
+    version over source_edges (never launching K1), their SADs, and the
+    first least one.  planes: (B, H, W) int32; above_row: (B, W) or None.
+    Returns (index into CANDIDATES, SAD), each (B, H/n, W/n) int32."""
+    B, Hh, Ww = planes.shape
+    p = planes.to(torch.int32)
+    blocks, above, left = source_edges(p, n, above_row)
+    on = torch.ones((above.shape[0],), dtype=torch.bool, device=p.device)
+    chans = list(_CHANNELS[:count]) if count == len(CANDIDATES) else [0, 1, 2]
+    preds = ij.intra_pred_plain(above, left, on, on, n, count > 3)[:, chans]
+    preds = preds.reshape(B, Hh // n, Ww // n, count, n, n)
+    sads = (preds - blocks[:, :, :, None]).abs().sum((-1, -2),
+                                                     dtype=torch.int32)
+    idx = torch.argmin(sads, dim=-1)  # the first least, as jnp.argmin
+    return idx.to(torch.int32), sads.min(-1).values.to(torch.int32)
+
+
+def mode_sad(planes: torch.Tensor, n: int, count: int = 10,
+             above_row=None):
+    """The best of the first `count` (10 or 3) CANDIDATES by SAD for every
+    n x n block of B planes (K12); see mode_sad_plain.  H and W multiples
+    of n, n in 8, 16, 32."""
+    if planes.device.type == "cpu":
+        return mode_sad_plain(planes, n, count, above_row)
+    B, Hh, Ww = planes.shape
+    if n not in (8, 16, 32) or count not in (3, 10) or Hh % n or Ww % n:
+        raise ValueError("mode_sad: n in 8, 16, 32, 3 or 10 candidates, "
+                         "planes of a multiple of n")
+    p = planes.to(torch.int32).contiguous()
+    row = None
+    if above_row is not None:
+        row = above_row.to(torch.int32).contiguous()
+        if row.shape != (B, Ww):
+            raise ValueError("mode_sad: above_row (B, W)")
+    dr, smw = ij._dev_tables(p.device)
+    best = torch.empty((B, Hh // n, Ww // n), dtype=torch.int32,
+                       device=p.device)
+    sad = torch.empty_like(best)
+    kernels.launch("mode_sad", p, p.data_ptr(), B, Hh, Ww, kernels.ptr(row),
+                   n, count, dr.data_ptr(), smw[n].data_ptr(),
+                   best.data_ptr(), sad.data_ptr())
+    return best, sad
+
+
+def mode_analysis(y: torch.Tensor, n: int, above_row=None) -> tuple:
+    """The best candidate of every n x n block of the luma plane y (H, W)
+    by source-edge SAD (device_pipeline.py:118 of the JAX package):
+    (mode (by, bx) int32, in ops.intra_np's ids, SAD (by, bx) int32).
+    above_row: the (W,) row above the plane (a shard's halo), else 128."""
+    idx, sad = mode_sad(y[None], n, 10,
+                        None if above_row is None else above_row[None])
+    mode_ids = torch.as_tensor(CANDIDATES, dtype=torch.int32, device=y.device)
+    return mode_ids[idx[0].long()], sad[0]
+
+
+def frame_mode_maps(y_plane: np.ndarray, device="cuda") -> dict:
+    """mode_analysis at n = 32 and 16 of an SB-padded int32 luma plane
+    (device_pipeline.py:262 of the JAX package): {n: (mode, SAD)} numpy
+    maps."""
+    yt = torch.as_tensor(np.ascontiguousarray(y_plane, np.int32),
+                         device=device)
+    out = {}
+    for n in (32, 16):
+        mode, sad = mode_analysis(yt, n)
+        out[n] = (mode.cpu().numpy(), sad.cpu().numpy())
+    return out
+
+
+def intra_analysis_step(sbs: torch.Tensor, qidx) -> torch.Tensor:
+    """(N, 8, 8) int32: each 8x8 block's least DC / V / H SAD from its
+    superblock's own edges (every (N, 64, 64) superblock a plane, 128
+    outside it) plus 2 + (qidx >> 5) (device_pipeline.py:351 of the JAX
+    package, the lookahead's intra cost model)."""
+    _idx, sad = mode_sad(sbs.to(torch.int32), 8, 3)
+    return sad + (2 + (int(qidx) >> 5))
+
+
+def _gather(parts: list, device) -> torch.Tensor:
+    return torch.cat([p.to(device) for p in parts])
+
+
+def sharded_intra_analysis(mesh, sbs, qidx) -> torch.Tensor:
+    """intra_analysis_step with the superblocks laid over the slots of a
+    parallel/mesh.py Mesh as its shards are (Mesh.groups): each slot runs
+    its part on its device, and the parts are concatenated on the first
+    slot (device_pipeline.py:372 of the JAX package)."""
+    sbs = torch.as_tensor(sbs)
+    parts = [intra_analysis_step(sbs[r.start : r.stop].to(dev), qidx)
+             for dev, r in mesh.groups(sbs.shape[0])]
+    return _gather(parts, mesh.slots[0])
+
+
+def sharded_mode_analysis(mesh, y, n: int) -> tuple:
+    """mode_analysis with the plane's block rows laid over the slots of a
+    parallel/mesh.py Mesh (device_pipeline.py:384 of the JAX package).
+    Each slot holds its rows and one halo row, the row above its first
+    one, copied from the previous slot's device: its first block row
+    reads that row as its above edge instead of the 128 padding, so the
+    maps, gathered on the first slot, equal the unsharded ones for any
+    split."""
+    y = torch.as_tensor(y)
+    groups = mesh.groups(y.shape[0] // n)
+    slabs = [y[r.start * n : r.stop * n].to(dev) for dev, r in groups]
+    parts = [mode_analysis(slab, n, slabs[i - 1][-1].to(dev) if i else None)
+             for i, (slab, (dev, _r)) in enumerate(zip(slabs, groups))]
+    dev0 = mesh.slots[0]
+    return (_gather([m for m, _ in parts], dev0),
+            _gather([s for _, s in parts], dev0))
 
 
 # -- motion estimation: hierarchical full search (K10) -------------------------

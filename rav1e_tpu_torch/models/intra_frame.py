@@ -1141,10 +1141,14 @@ class IntraFrameEncoder:
         """Fused device LR decision (speed-6 flow: none-vs-Wiener with
         frame-level taps, no SGR search), read from the filter chain's
         fused LR stage (ops/filter_chain.py: taps by K7, trials, unit
-        choice and composition by K8).  A frame without that stage (the
-        host filter path of host-coded frames) solves the tap sets on the
-        host: all zero, every unit is RESTORE_NONE (True); else False, and
+        choice and composition by K8).  A frame without that stage solves
+        the tap sets on the host: all zero, every unit is RESTORE_NONE
+        (True); else the decision runs on the planes a chain without its
+        LR stage (RAV1E_TPU_LR_FUSE=0) kept on the device
+        (ops/lrf.lr_decide_device, K8; True), or, where there are none
+        (the host filter path of host-coded frames), False, and
         _lr_decide's host per-unit path runs (K8 in frame mode)."""
+        from rav1e_tpu_torch.ops import lrf
         from rav1e_tpu_torch.ops import lrf_np as lr
 
         self._lr_chroma = {1: {}, 2: {}}
@@ -1203,24 +1207,41 @@ class IntraFrameEncoder:
                 htc = (0, int(htc[1]), int(htc[2]))
                 if (vtc, htc) != ((0, 0, 0), (0, 0, 0)):
                     taps_c[plane] = (vtc, htc)
+        rows = lr.unit_ranges(self.LR_UNIT, self.out_h, shifted=True)
+        cols = lr.unit_ranges(self.LR_UNIT, self.out_w)
         if taps_y is None and not taps_c:
-            rows = lr.unit_ranges(self.LR_UNIT, self.out_h, shifted=True)
-            cols = lr.unit_ranges(self.LR_UNIT, self.out_w)
             for ur in range(len(rows)):
                 for uc in range(len(cols)):
                     self._lr_params[(ur, uc)] = None
             return True
-        # the JAX package's separate device decision (lr_decide_device)
-        # reads the chain's device planes, the chroma among them; a frame
-        # without them (the host filter path keeps luma planes at most)
-        # takes the host per-unit path, where that decision declines too
-        if (getattr(self, "_dev_db_c", None) is None
-                or getattr(self, "_dev_cdef_c", None) is None):
+        # the decision on the planes the chain kept on the device (K8); a
+        # frame without them (the host filter path keeps luma planes at
+        # most) takes the host per-unit path, as in the JAX package
+        res = lrf.lr_decide_device(self, taps_y, taps_c)
+        if res is None:
             return False
-        raise NotImplementedError(
-            "the loop-restoration decision from the device planes of a "
-            "chain without its LR stage (lrf_jax.lr_decide_device): "
-            "ROADMAP queue 1 item 10")
+        comp, choice = res
+        for ur, (y0, y1) in enumerate(rows):
+            for uc, (x0, x1) in enumerate(cols):
+                if taps_y is not None and choice[0][ur, uc]:
+                    self._lr_params[(ur, uc)] = (
+                        "wiener", vt, ht, comp[0][y0:y1, x0:x1])
+                else:
+                    self._lr_params[(ur, uc)] = None
+        rows_c = lr.unit_ranges(self.LR_UNIT >> 1, ch, shifted=True)
+        cols_c = lr.unit_ranges(self.LR_UNIT >> 1, cw)
+        for plane, tps in taps_c.items():
+            if not choice[plane].any():
+                continue
+            units = {}
+            for ur, (y0, y1) in enumerate(rows_c):
+                for uc, (x0, x1) in enumerate(cols_c):
+                    units[(ur, uc)] = (comp[plane][y0:y1, x0:x1]
+                                       if choice[plane][ur, uc] else None)
+            self._lr_chroma[plane] = units
+            self._lr_chroma_taps[plane] = tps
+            self.lr_types[plane] = 2  # coded RESTORE_WIENER
+        return True
 
     def _lr_decide_chroma(self) -> None:
         """Chroma restoration (reference: src/lrf.rs restores all 3

@@ -23,10 +23,16 @@ CDEF strengths and the fused LR decision for the host entropy pass.  With
 the SGR search (speed <= 5, where the chain runs only when the deblock
 levels are all zero) the chain skips the fused LR and hands back the
 deblocked planes, on the host for the per-unit search and on the device
-for its trial filter (filter_chain_jax.py:327, :360).
+for its trial filter (filter_chain_jax.py:327, :360).  With the fused LR
+stage switched off (RAV1E_TPU_LR_FUSE=0, as in the JAX package) and no
+SGR search, the chain keeps the deblocked and CDEF planes and the source
+planes on the device only, for ops/lrf.lr_decide_device (filter_chain_jax
+.py:431-434, :456-458).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -64,8 +70,10 @@ def _splice(fe, dev_rec, device):
 
 def _lr_fuse(fe):
     """(out_w, out_h) when the fused LR stage runs (filter_chain_jax.py
-    :359-363), else None."""
-    if fe.lrf and not getattr(fe, "sgr_search", False) and fe.q > 0:
+    :359-363), else None.  RAV1E_TPU_LR_FUSE=0 switches it off: the taps
+    are then solved on the host and the decision is lr_decide_device."""
+    if (fe.lrf and not getattr(fe, "sgr_search", False) and fe.q > 0
+            and os.environ.get("RAV1E_TPU_LR_FUSE", "1") != "0"):
         return fe.out_w, fe.out_h
     return None
 
@@ -123,10 +131,15 @@ def launch_filter_chain(fe):
             *db.plane_lims(fe.lf_levels, fe.lf_sharpness, p, fe.bd),
             fe.bd).contiguous())
     lr_fuse = _lr_fuse(fe)
-    # the host LR search (SGR, per-unit taps) reads the deblocked planes
-    keep_db = dbs if fe.lrf and getattr(fe, "sgr_search", False) else None
-    if not fe.cdef_damping and lr_fuse is None:
-        return {"planes": dbs, "cdef": None, "lr": None, "db": keep_db}
+    # LR without the fused stage reads the deblocked planes: the host LR
+    # search (SGR, per-unit taps) on the host, lr_decide_device on the
+    # device, with the sources
+    sgr = fe.lrf and getattr(fe, "sgr_search", False)
+    keep_db = dbs if fe.lrf and lr_fuse is None else None
+    keep_src = keep_db is not None and not sgr
+    if not fe.cdef_damping and lr_fuse is None and not keep_src:
+        return {"planes": dbs, "cdef": None, "lr": None, "db": keep_db,
+                "src": None}
     srcs = [torch.as_tensor(np.ascontiguousarray(fe.src[p][:hh, :ww],
                                                  np.int32), device=device)
             for p, (hh, ww) in enumerate(((h, w), (ch, cw), (ch, cw)))]
@@ -139,16 +152,19 @@ def launch_filter_chain(fe):
             *dbs, *srcs, skip, float(sb_lam), fe.cdef_damping, fe.bd)
         sel = (use_sb, frame_best, idx_map)
     lr = _restore(out, dbs, srcs, fe, *lr_fuse) if lr_fuse else None
-    return {"planes": out, "cdef": sel, "lr": lr, "db": keep_db}
+    return {"planes": out, "cdef": sel, "lr": lr, "db": keep_db,
+            "src": srcs if keep_src else None}
 
 
 def collect_filter_chain(fe, handle) -> bool:
     """Wait on a launch_filter_chain handle: copy the filtered planes back
     into fe.rec and fill the CDEF strengths (fe.cdef_strengths,
     fe.cdef_sb) and the fused LR decision (fe._chain_lr = (composed
-    planes, choices, taps, en)), or for the host LR search the deblocked
-    planes (fe._deblock_copy on the host; fe._dev_db, fe._dev_cdef and
-    their chroma pairs fe._dev_db_c, fe._dev_cdef_c on the device)."""
+    planes, choices, taps, en)), or for LR without the fused stage the
+    deblocked planes (fe._dev_db, fe._dev_cdef and their chroma pairs
+    fe._dev_db_c, fe._dev_cdef_c on the device; for the host LR search
+    also fe._deblock_copy on the host, else None and the source planes
+    fe._dev_src on the device)."""
     h, w = fe.coded_h, fe.coded_w
     ch, cw = h >> 1, w >> 1
     with fe.stats.stage("chain_wait"):
@@ -174,12 +190,15 @@ def collect_filter_chain(fe, handle) -> bool:
     fe._chain_lr = (comp, choice, taps, en) if lr is not None else None
     db = handle["db"]
     if db is not None:
-        copies = []
-        for p, d in enumerate(db):
-            full = np.array(fe.rec[p])
-            full[: d.shape[0], : d.shape[1]] = d.cpu().numpy()
-            copies.append(full)
+        copies = None
+        if handle["src"] is None:  # the host LR search's planes
+            copies = []
+            for p, d in enumerate(db):
+                full = np.array(fe.rec[p])
+                full[: d.shape[0], : d.shape[1]] = d.cpu().numpy()
+                copies.append(full)
         fe._deblock_copy = copies
+        fe._dev_src = handle["src"]
         planes = handle["planes"]
         fe._dev_db, fe._dev_cdef = db[0], planes[0]
         fe._dev_db_c, fe._dev_cdef_c = tuple(db[1:]), tuple(planes[1:])

@@ -3,7 +3,8 @@ with ops/intra_np.py.
 
 Counterpart of rav1e_tpu/ops/intra_jax.py (predict_dirs, dir_matrices,
 dc_predict; cfl_ac_420_batch and cfl_predict_batch with the wavefront's
-alpha fit, K11) and of the wavefront's _nondir_preds.  NORMATIVE (spec 7.11.2):
+alpha fit, K11; dr_predict_batch, K13; predict_stack over K1 and K13;
+build_edges_batch, K14) and of the wavefront's _nondir_preds.  NORMATIVE (spec 7.11.2):
 the wavefront encoder reconstructs with these predictions.  Edge filtering
 and upsampling are off in this encoder's streams.
 
@@ -12,7 +13,10 @@ for a batch of lanes: FULL = DC, the 56 directional variants (8 modes x 7
 angle deltas, enum order) and SMOOTH/SMOOTH_V/SMOOTH_H/PAETH (61
 channels); NONDIR = DC, V, H, SMOOTH, SMOOTH_V, SMOOTH_H, PAETH (7).  On a
 CUDA tensor it launches the hand-written kernel csrc/intra_pred.cu; on a
-CPU tensor it runs the plain version below.
+CPU tensor it runs the plain version below.  Likewise dr_predict_batch
+(csrc/dr_predict.cu: one lane's prediction at its own angle, any w x h)
+and build_edges_batch (csrc/build_edges.cu: the edge vectors of B blocks
+from a reconstructed plane).
 """
 
 from __future__ import annotations
@@ -253,3 +257,172 @@ def cfl(luma: torch.Tensor, dc: torch.Tensor, src: torch.Tensor,
     kernels.launch("cfl", y, y.data_ptr(), B, n, d.data_ptr(), s.data_ptr(),
                    bd, alpha.data_ptr(), pred.data_ptr(), resid.data_ptr())
     return alpha, pred, resid
+
+
+# -- K13 dr_predict, predict_stack --------------------------------------------------
+
+def dr_predict_plain(above, left, p_angle, w: int, h: int):
+    """Plain version of K13: intra_jax.dr_predict_batch in torch, all
+    three zones computed and selected by each lane's angle.  The JAX
+    function clamps derivative indices into a zero-padded 274-entry
+    table; the zone an angle selects indexes below 90 for every angle,
+    so clamping into dr_intra_derivative's 90 entries gives the same
+    predictions."""
+    B = above.shape[0]
+    dev = above.device
+    dr = _dev_tables(dev)[0]
+    rr = torch.arange(h, device=dev)[None, :, None]
+    cc = torch.arange(w, device=dev)[None, None, :]
+    n_edge = w + h
+    pa = p_angle.to(torch.int64)[:, None, None]
+    above = above.to(torch.int32)
+    left = left.to(torch.int32)
+
+    def gat(edge, idx):
+        idx = torch.clamp(idx, 0, n_edge).reshape(B, h * w)
+        return torch.gather(edge, 1, idx).reshape(B, h, w)
+
+    d = lambda i: dr[torch.clamp(i, 0, len(ip._DR) - 1)]
+    mx = w + h - 1
+    xpos1 = (rr + 1) * d(pa)
+    bx1 = (xpos1 >> 6) + cc
+    sh1 = (xpos1 >> 1) & 0x1F
+    v1 = (gat(above, 1 + bx1) * (32 - sh1) + gat(above, 2 + bx1) * sh1
+          + 16) >> 5
+    z1 = torch.where(bx1 >= mx, above[:, 1 + mx][:, None, None], v1)
+    xpos2 = (cc << 6) - (rr + 1) * d(180 - pa)
+    bx2 = xpos2 >> 6
+    shx = (xpos2 >> 1) & 0x1F
+    av2 = (gat(above, 1 + bx2) * (32 - shx) + gat(above, 2 + bx2) * shx
+           + 16) >> 5
+    ypos2 = (rr << 6) - (cc + 1) * d(pa - 90)
+    by2 = ypos2 >> 6
+    shy = (ypos2 >> 1) & 0x1F
+    lv2 = (gat(left, 1 + by2) * (32 - shy) + gat(left, 2 + by2) * shy
+           + 16) >> 5
+    z2 = torch.where(bx2 >= -1, av2, lv2)
+    ypos3 = (cc + 1) * d(270 - pa)
+    by3 = (ypos3 >> 6) + rr
+    sh3 = (ypos3 >> 1) & 0x1F
+    v3 = (gat(left, 1 + by3) * (32 - sh3) + gat(left, 2 + by3) * sh3
+          + 16) >> 5
+    z3 = torch.where(by3 >= mx, left[:, 1 + mx][:, None, None], v3)
+    vert = above[:, None, 1 : 1 + w].expand(B, h, w)
+    horz = left[:, 1 : 1 + h, None].expand(B, h, w)
+    out = torch.where(pa < 90, z1, torch.where(
+        pa == 90, vert, torch.where(pa < 180, z2, torch.where(
+            pa == 180, horz, z3))))
+    return out.to(torch.int32)
+
+
+def dr_predict_batch(above: torch.Tensor, left: torch.Tensor,
+                     p_angle: torch.Tensor, w: int, h: int) -> torch.Tensor:
+    """Directional prediction of B lanes of w x h blocks, each at its own
+    angle (intra_jax.py:144, K13).  above/left: (B, 1 + w + h) int32 edges
+    (index 0 = top-left, as build_edges_batch makes them); p_angle: (B,)
+    int32, multiples of 3 in [36, 212].  Returns (B, h, w) int32."""
+    if above.device.type == "cpu":
+        return dr_predict_plain(above, left, p_angle, w, h)
+    B = above.shape[0]
+    if w not in (4, 8, 16, 32, 64) or h not in (4, 8, 16, 32, 64) or \
+            above.shape != (B, 1 + w + h) or left.shape != above.shape or \
+            p_angle.shape != (B,):
+        raise ValueError("dr_predict_batch: w, h in 4..64, edges (B, 1 + w "
+                         "+ h) and angles (B,)")
+    a = above.to(torch.int32).contiguous()
+    lf = left.to(torch.int32).contiguous()
+    ang = p_angle.to(torch.int32).contiguous()
+    dr = _dev_tables(a.device)[0]
+    out = torch.empty((B, h, w), dtype=torch.int32, device=a.device)
+    kernels.launch("dr_predict", a, a.data_ptr(), lf.data_ptr(),
+                   ang.data_ptr(), B, w, h, dr.data_ptr(), out.data_ptr())
+    return out
+
+
+# the six modes predict_stack takes from K13, at their base angles
+STACK_DIRS = (D45, D135, D113, D157, D203, D67)
+
+
+def predict_stack(above, left, w: int, h: int, ha, hl,
+                  bd: int = 8) -> torch.Tensor:
+    """All 13 intra modes at angle delta 0 (intra_jax.py:100): (B, 13, h,
+    w) int32 in mode order.  DC, V, H, SMOOTH, SMOOTH_V, SMOOTH_H and
+    PAETH come from K1's non-directional set, the six directional modes
+    from one K13 launch over B x 6 lanes at their base angles.  Square
+    blocks only, as the JAX function's dc_predict asserts."""
+    if w != h:
+        raise ValueError("predict_stack: square blocks only")
+    B = above.shape[0]
+    nd = intra_pred(above, left, ha, hl, w, False, bd)  # (B, 7, n, n)
+    ang = torch.as_tensor([ip.MODE_ANGLE[m] for m in STACK_DIRS],
+                          dtype=torch.int32, device=above.device)
+    dirs = dr_predict_batch(above.repeat_interleave(6, 0),
+                            left.repeat_interleave(6, 0), ang.repeat(B),
+                            w, h).reshape(B, 6, h, w)
+    out = torch.empty((B, 13, h, w), dtype=torch.int32, device=above.device)
+    for ch, m in enumerate((DC, V, H, SMOOTH, SMOOTH_V, SMOOTH_H, PAETH)):
+        out[:, m] = nd[:, ch]
+    for k, m in enumerate(STACK_DIRS):
+        out[:, m] = dirs[:, k]
+    return out
+
+
+# -- K14 build_edges ----------------------------------------------------------------
+
+
+def build_edges_plain(rec, y, x, w: int, h: int, ha, hl, n_tr, n_bl,
+                      max_x: int, max_y: int, bd: int = 8):
+    """Plain version of K14: intra_jax.build_edges_batch in torch, with
+    every plane index clamped into the plane as JAX's gathers clamp."""
+    base = 1 << (bd - 1)
+    n = w + h
+    dev = rec.device
+    Hh, Ww = rec.shape
+    rec = rec.to(torch.int32)
+    y, x = y.to(torch.int64), x.to(torch.int64)
+    ha, hl = ha.to(torch.bool), hl.to(torch.bool)
+    i = torch.arange(n, device=dev)[None, :]
+    at = lambda r, c: rec[torch.clamp(r, 0, Hh - 1), torch.clamp(c, 0, Ww - 1)]
+    avail_a = w + torch.clamp(n_tr.to(torch.int64), max=h)
+    col = torch.clamp(x[:, None] + torch.minimum(i, avail_a[:, None] - 1),
+                      max=max_x)
+    row_above = torch.clamp(y - 1, min=0)
+    col_left = torch.clamp(x - 1, min=0)
+    left_top = at(y, col_left)
+    top_row = at(row_above, x)
+    fill = lambda v: torch.full_like(left_top, v)
+    above_v = torch.where(ha[:, None], at(row_above[:, None], col),
+                          torch.where(hl, left_top, fill(base - 1))[:, None])
+    avail_l = h + torch.clamp(n_bl.to(torch.int64), max=w)
+    rr = torch.clamp(y[:, None] + torch.minimum(i, avail_l[:, None] - 1),
+                     max=max_y)
+    left_v = torch.where(hl[:, None], at(rr, col_left[:, None]),
+                         torch.where(ha, top_row, fill(base + 1))[:, None])
+    tl = torch.where(ha & hl, at(row_above, col_left),
+                     torch.where(ha, top_row,
+                                 torch.where(hl, left_top, fill(base))))
+    return (torch.cat([tl[:, None], above_v], 1),
+            torch.cat([tl[:, None], left_v], 1))
+
+
+def build_edges_batch(rec: torch.Tensor, y, x, w: int, h: int, ha, hl,
+                      n_tr, n_bl, max_x: int, max_y: int, bd: int = 8):
+    """The spec 7.11.2 edges of B blocks (intra_jax.py:44, K14).  rec:
+    (H, W) int32 plane; y/x: (B,) block origins; ha/hl: (B,) bool
+    availability; n_tr/n_bl: (B,) int32 valid samples past the block's
+    edge.  Returns (above, left), each (B, 1 + w + h) int32 with index 0
+    the top-left corner."""
+    if rec.device.type == "cpu":
+        return build_edges_plain(rec, y, x, w, h, ha, hl, n_tr, n_bl, max_x,
+                                 max_y, bd)
+    r = rec.to(torch.int32)
+    r = r if r.stride(1) == 1 else r.contiguous()
+    lanes = [torch.as_tensor(v, device=r.device).to(torch.int32).contiguous()
+             for v in (y, x, ha, hl, n_tr, n_bl)]
+    B = lanes[0].shape[0]
+    above = torch.empty((B, 1 + w + h), dtype=torch.int32, device=r.device)
+    left = torch.empty_like(above)
+    kernels.launch("build_edges", r, r.data_ptr(), r.shape[0], r.shape[1],
+                   r.stride(0), *(v.data_ptr() for v in lanes), B, w, h,
+                   max_x, max_y, bd, above.data_ptr(), left.data_ptr())
+    return above, left

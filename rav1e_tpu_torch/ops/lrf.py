@@ -17,8 +17,10 @@ K8 also has a frame mode (wiener_filter_frame): the whole restored plane
 with given taps, no unit choice, at 8, 10 or 12 bits.
 wiener_filter_frame_device runs it for the host LR search (lrf_jax.py:254)
 of speed <= 5 and of the host-coded frames, whose tap solve stays on the
-host.  The unit-choice mode runs in the chain only, after an 8-bit
-wavefront pass.
+host.  The unit-choice mode runs after an 8-bit wavefront pass: in the
+chain's fused LR stage, or, with that stage off (RAV1E_TPU_LR_FUSE=0),
+in lr_decide_device (lrf_jax.py:190) with taps solved on the host, from
+the planes the chain kept on the device.
 
 On a CUDA tensor the wrappers launch the kernels in csrc/; on a CPU
 tensor they run the plain versions below.
@@ -234,9 +236,10 @@ def wiener_lr_plain(cd, db, src, taps, en, lam: float, rate: float,
 
 
 def wiener_lr(cd, db, src, taps, en, lam: float, rate: float, unit: int,
-              hh: int, ww: int):
+              hh: int, ww: int, count: str = "wiener_lr"):
     """One plane's Wiener restoration, unit choice and composition (K8);
-    see wiener_lr_plain."""
+    see wiener_lr_plain.  count: the launch counter of the caller's route
+    ("wiener_lr" in the chain, "wiener_lr_decide" from lr_decide_device)."""
     if cd.device.type == "cpu":
         return wiener_lr_plain(cd, db, src, taps, en, lam, rate, unit, hh,
                                ww)
@@ -256,8 +259,47 @@ def wiener_lr(cd, db, src, taps, en, lam: float, rate: float, unit: int,
                    db.data_ptr(), db.stride(0), src.data_ptr(), src.stride(0),
                    hh, ww, unit, 8, taps.data_ptr(), en.data_ptr(),
                    float(np.float32(lam)), float(np.float32(rate)),
-                   out.data_ptr(), choice.data_ptr())
+                   out.data_ptr(), choice.data_ptr(), count=count)
     return out, choice.to(torch.bool)
+
+
+def lr_decide_device(fe, taps_y, taps_c: dict):
+    """The none-vs-Wiener decision of every restoration unit of the three
+    planes from given frame taps (lrf_jax.py:190), on the planes a chain
+    without its fused LR stage kept on the device: fe._dev_cdef /
+    fe._dev_db (luma CDEF output and deblocked plane), their chroma pairs
+    fe._dev_cdef_c / fe._dev_db_c and the source planes fe._dev_src.
+    taps_y: (vt, ht) or None; taps_c: {plane: (vt, ht)}, solved on the
+    host.  One K8 launch a plane (luma units of 64, chroma of 32, counted
+    "wiener_lr_decide"); a plane without taps composes to its CDEF output.
+    Returns (composed planes [Y, U, V] int32 numpy at the output size,
+    choice maps {0, 1, 2: bool (n_ur, n_uc)}), or None when the planes
+    are not on the device (8-bit 4:2:0 chain frames only)."""
+    planes = [getattr(fe, a, None) for a in ("_dev_cdef", "_dev_db",
+                                             "_dev_cdef_c", "_dev_db_c",
+                                             "_dev_src")]
+    if fe.bd != 8 or any(p is None for p in planes):
+        return None
+    cd_y, db_y, cd_c, db_c, srcs = planes
+    out_h, out_w = fe.out_h, fe.out_w
+    ch, cw = (out_h + 1) >> 1, (out_w + 1) >> 1
+    lam = float(np.float32(fe.lam))
+    comp, choice = [], {}
+    for p, (cd, db, tp, unit, rate, hh, ww) in enumerate((
+            (cd_y, db_y, taps_y, 64, LR_RATE_Y, out_h, out_w),
+            (cd_c[0], db_c[0], taps_c.get(1), 32, LR_RATE_C, ch, cw),
+            (cd_c[1], db_c[1], taps_c.get(2), 32, LR_RATE_C, ch, cw))):
+        taps = torch.as_tensor(np.asarray(tp if tp is not None
+                                          else ((0, 0, 0), (0, 0, 0)),
+                                          np.int32), device=cd.device)
+        en = torch.as_tensor([int(tp is not None)], dtype=torch.int32,
+                             device=cd.device)
+        c, t = wiener_lr(cd, db, srcs[p], taps, en, lam, rate, unit, hh, ww,
+                         count="wiener_lr_decide")
+        comp.append(c)
+        choice[p] = t
+    return ([c.cpu().numpy() for c in comp],
+            {p: t.cpu().numpy() for p, t in choice.items()})
 
 
 def wiener_filter_frame(cd, db, taps, stripe: int, hh: int, ww: int,

@@ -11,8 +11,11 @@ me_fullpel on uint16 planes; frame_rd_maps by its tie rule;
 fwd_txq, with and without the inter race's thinning, within its
 rounding-tie share), and the paths that drive them (among them the tile
 route of Config(threads=4) with 4 tile columns, also over 2 slots, and
-the sharded deblock at 8 and 10 bits).  Without a card they
-skip.  On a machine without JAX (the tests' conftest imports
+the sharded deblock at 8 and 10 bits; the LR decision of a chain without
+its fused stage, RAV1E_TPU_LR_FUSE=0, over wiener_lr), and the
+source-edge analysis kernels mode_sad (also sharded), dr_predict (also
+under predict_stack) and build_edges, and put_single_batch over mc_pred
+at 8, 10 and 12 bits.  Without a card they skip.  On a machine without JAX (the tests' conftest imports
 it) run them as
 
     python -m pytest --noconftest tests/test_torch_chip.py
@@ -804,3 +807,159 @@ def test_multidevice_on_card(monkeypatch):
         for r, c in zip(*fe._chk_wf.geom.device_sb.nonzero()):
             assert (chip_smoke._records(fe._chk_wf, r, c)
                     == chip_smoke._records(f2._chk_wf, r, c))
+
+
+@pytest.mark.parametrize("n,count", [(8, 3), (8, 10), (16, 10), (32, 10)])
+def test_mode_sad_kernel(n, count):
+    """K12 on noisy content and on flat patches (ties), with and without a
+    halo row above the planes, identical to the plain version; the
+    sharded maps over 4 slots equal the whole plane's."""
+    from rav1e_tpu_torch import kernels
+    from rav1e_tpu_torch.models import device_pipeline as dp
+    from rav1e_tpu_torch.parallel import mesh as tmesh
+    from rav1e_tpu_torch.parallel.dryrun import default_slots
+
+    dev = _card()
+    rng = np.random.default_rng(SEED + n + count)
+    noisy = rng.integers(0, 256, (2, 288, 320))
+    flat = np.kron(rng.integers(0, 256, (2, 5, 5)), np.ones((1, 64, 64),
+                                                           np.int64))
+    planes = torch.as_tensor(np.concatenate([noisy, flat[:, :288]]),
+                             dtype=torch.int32, device=dev)
+    row = torch.as_tensor(rng.integers(0, 256, (4, 320)), dtype=torch.int32,
+                          device=dev)
+    for above in (None, row):
+        before = kernels.COUNTS["mode_sad"]
+        got = dp.mode_sad(planes, n, count, above)
+        assert kernels.COUNTS["mode_sad"] == before + 1
+        ref = dp.mode_sad_plain(planes, n, count, above)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    if count == 10:
+        mesh = tmesh.make_mesh(4, devices=default_slots(4))
+        whole = dp.mode_analysis(planes[0], n)
+        for g, w in zip(dp.sharded_mode_analysis(mesh, planes[0], n), whole):
+            assert torch.equal(g.to(dev), w)
+
+
+@pytest.mark.parametrize("w,h", [(4, 4), (8, 8), (16, 16), (32, 32),
+                                 (64, 64), (8, 16), (16, 8), (4, 32)])
+def test_dr_predict_kernel(w, h):
+    """K13 at each of the 56 directional angles, identical to the plain
+    version; predict_stack (K1 + K13) at the square sizes."""
+    from rav1e_tpu_torch import kernels
+    from rav1e_tpu_torch.ops import intra
+
+    dev = _card()
+    rng = np.random.default_rng(SEED + w * 64 + h)
+    angles = np.tile(intra.DIR_ANGLES.reshape(-1), 8).astype(np.int32)
+    B = angles.size
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    above = rng.integers(0, 256, (B, 1 + w + h)).astype(np.int32)
+    left = rng.integers(0, 256, (B, 1 + w + h)).astype(np.int32)
+    left[:, 0] = above[:, 0]
+    args = (t(above), t(left), t(angles), w, h)
+    before = kernels.COUNTS["dr_predict"]
+    got = intra.dr_predict_batch(*args)
+    assert kernels.COUNTS["dr_predict"] == before + 1
+    assert torch.equal(got, intra.dr_predict_plain(*args))
+    if w == h:
+        ha, hl = t(rng.random(B) < 0.7), t(rng.random(B) < 0.7)
+        stack = intra.predict_stack(args[0], args[1], w, h, ha, hl)
+        nd = intra.intra_pred_plain(args[0], args[1], ha, hl, w, False)
+        for ch, m in enumerate((intra.DC, intra.V, intra.H, intra.SMOOTH,
+                                intra.SMOOTH_V, intra.SMOOTH_H,
+                                intra.PAETH)):
+            assert torch.equal(stack[:, m], nd[:, ch])
+        for m in intra.STACK_DIRS:
+            ang = torch.full((B,), intra.ip.MODE_ANGLE[m], dtype=torch.int32,
+                             device=dev)
+            assert torch.equal(stack[:, m], intra.dr_predict_plain(
+                args[0], args[1], ang, w, h))
+
+
+@pytest.mark.parametrize("w,h,bd", [(8, 8, 8), (16, 8, 8), (32, 32, 10),
+                                    (64, 64, 12)])
+def test_build_edges_kernel(w, h, bd):
+    """K14 over every availability pattern and blocks at the plane's
+    corners (the clamps), identical to the plain version."""
+    from rav1e_tpu_torch import kernels
+    from rav1e_tpu_torch.ops import intra
+
+    dev = _card()
+    rng = np.random.default_rng(SEED + w + h + bd)
+    H, W = 1080, 1920
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    B = 2048
+    ys = (rng.integers(0, H // h, B) * h).astype(np.int32)
+    xs = (rng.integers(0, W // w, B) * w).astype(np.int32)
+    ys[:4], xs[:4] = (0, 0, H - h, H - h), (0, W - w, 0, W - w)
+    args = (t(rng.integers(0, 1 << bd, (H, W)).astype(np.int32)), t(ys),
+            t(xs), w, h, t(np.arange(B) % 2 == 0), t(np.arange(B) % 4 < 2),
+            t((rng.integers(0, 3, B) * (w // 2)).astype(np.int32)),
+            t((rng.integers(0, 3, B) * (h // 2)).astype(np.int32)),
+            W - 3, H - 5, bd)
+    before = kernels.COUNTS["build_edges"]
+    got = intra.build_edges_batch(*args)
+    assert kernels.COUNTS["build_edges"] == before + 1
+    for g, r in zip(got, intra.build_edges_plain(*args)):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("sub,bd,fset", [(0, 8, 0), (1, 8, 1), (0, 10, 2),
+                                         (1, 12, 0)])
+def test_put_single_batch_on_card(sub, bd, fset):
+    """put_single_batch through K9 (uint8 or uint16 planes, any filter
+    set) identical to the plain version on the CPU."""
+    from rav1e_tpu_torch import kernels
+    from rav1e_tpu_torch.ops import mc
+
+    _card()
+    rng = np.random.default_rng(SEED + sub + bd + fset)
+    ref = rng.integers(0, 1 << bd, (1080 >> sub, 1920 >> sub)).astype(
+        np.int32)
+    n = 16 >> sub
+    B = 512
+    blocks = np.stack([rng.integers(0, ref.shape[1] - n, B),
+                       rng.integers(0, ref.shape[0] - n, B)], 1)
+    mvs = rng.integers(-mc.MV_LIMIT, mc.MV_LIMIT + 1, (B, 2))
+    args = (ref, blocks, mvs, n, n, sub, sub, bd, fset)
+    before = kernels.COUNTS["mc_pred"]
+    got = mc.put_single_batch(*args)
+    assert kernels.COUNTS["mc_pred"] == before + 1
+    assert np.array_equal(got, mc.put_single_batch(*args, device="cpu"))
+
+
+def test_lr_decide_on_card(monkeypatch):
+    """Two 320x240 key frames at the speed-6 defaults with
+    RAV1E_TPU_LR_FUSE=0: K7 and K8's chain mode stay idle, K8 launches 3
+    times a frame on the unfused route (counted wiener_lr_decide), every
+    such call identical to wiener_lr_plain, and the output conforms as
+    chip_smoke.py checks it."""
+    import chip_smoke
+    from rav1e_tpu_torch import kernels
+    from rav1e_tpu_torch.ops import lrf
+    from rav1e_tpu_torch.utils.content import make_frames
+
+    _card()
+    monkeypatch.setenv("RAV1E_TPU_LR_FUSE", "0")
+    monkeypatch.setattr(chip_smoke, "W", 320)
+    monkeypatch.setattr(chip_smoke, "H", 240)
+    calls = []
+    orig = lrf.wiener_lr
+
+    def spy(*a, **k):
+        out = orig(*a, **k)
+        calls.append((a, k, out))
+        return out
+
+    monkeypatch.setattr(lrf, "wiener_lr", spy)
+    kernels.reset_counts()
+    data, recon, fes = chip_smoke.encode(make_frames(320, 240, 2), check=True)
+    assert kernels.COUNTS["wiener_lr_decide"] == len(calls) == 6
+    assert kernels.COUNTS["wiener_lr"] == kernels.COUNTS["wiener_solve"] == 0
+    for a, k, (comp, choice) in calls:
+        assert k["count"] == "wiener_lr_decide"
+        rc, rch = lrf.wiener_lr_plain(*a)
+        assert torch.equal(comp, rc) and torch.equal(choice, rch)
+    summary = chip_smoke.check_output(data, recon, fes, 2)
+    assert summary["filter_chain_np_frames"] == 2
