@@ -21,7 +21,13 @@
    exact coefficient lies within the fp32 error bound of a .5 rounding
    tie, and such coefficients may be at most FDCT_TIE_SHARE of them.
    Times each (CUDA events, warmed) beside its plain version, its bound
-   and, for fwd_txq, the torch.matmul forward transform.
+   and, for fwd_txq, the torch.matmul forward transform; for fwd_txq
+   also its launches alone and the transform's (device_ms,
+   library_device_ms: 20 calls captured in one CUDA graph, the replay
+   timed), the key race's call over its first block alone (the device
+   time that does not grow with the blocks), and the largest sums-only
+   call (the 13-candidate mode race, levels=False), whose sums must
+   equal the full call's, with its bound with and without the levels.
 5. Checks the output: with libdav1d present the stream decodes to the
    encoder's recon; in every case 16 sampled superblocks a frame re-derive
    from their records with the numpy oracles onto the pre-filter recon,
@@ -47,8 +53,9 @@
    fwd_txq with thinning among them), and
    blocks must choose inter prediction with nonzero MVs.  Holds K9 and
    K10 (identical) and fwd_txq with thinning (the tie rule) against their
-   plain versions on the path's largest calls, timed beside their bounds;
-   re-derives sampled superblocks of every frame (inter blocks by mc_np
+   plain versions on the path's largest calls, timed beside their bounds
+   (fwd_txq with thinning also sums-only, and sums-only over one
+   residual, to split its device time); re-derives sampled superblocks of every frame (inter blocks by mc_np
    from the reference's output recon) and INTER_FILTER_FRAMES inter frames
    through deblock_np, cdef_np and lrf_np; a second encode of the first
    MIXED_TIMED frames must write the same bytes, and gives the mixed
@@ -131,9 +138,9 @@
    CLI_SIZE clip: the key frame re-derives through the numpy filters onto
    the written y4m, and the printed PSNR is frame_psnr's.
 13. Drives the tile route: TILE_FRAMES key frames of 2560x1600 (WQXGA,
-   40 x 25 superblocks) in bench.py's keyframe configuration with
-   tile_cols=4, tune="psnr" (ROADMAP F8) and Config(threads=4), with the
-   counts set to 0 before it.
+   40 x 25 superblocks) in bench.py's keyframe configuration (at
+   EncoderConfig's default tune, psychovisual) with tile_cols=4 and
+   Config(threads=4), with the counts set to 0 before it.
    Every frame must take the tile route (the pass over the 4 tile
    columns' stacked lanes, parallel/tiles.py: `wavefront_tiles` counts
    each), K1-K3 and the host filter path's K5 and K6 must launch, K4, K7
@@ -247,6 +254,56 @@ def cuda_ms(fn, reps: int = 20) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of fn: `reps` calls captured in one CUDA
+    graph (inputs made before, outputs allocated at capture from the
+    graph's pool), the replay timed with CUDA events, so the host's issue
+    time drops out."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    g.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+K2_EAGER_REPS = 100  # back-to-back calls a K2 ms: the host's issue time
+#                     varies from call to call on a shared host
+
+
+def fwd_times(call, a) -> dict:
+    """K2's times on one call's arguments `a`: the wrapper as the pass
+    calls it (ms: K2_EAGER_REPS back-to-back calls, the host's issue time
+    included) and its launches alone (device_ms, graph_ms), beside one
+    PyTorch call of the same forward transform, torch.matmul over the same
+    blocks with the first matrix pair, timed both ways (library_ms,
+    library_device_ms)."""
+    import torch
+
+    resid, Fv, FhT = a[:3]
+    Fv0, FhT0 = (Fv[0], FhT[0]) if Fv.dim() == 3 else (Fv, FhT)
+    xf = resid.float()
+    lib = lambda: torch.matmul(Fv0, torch.matmul(xf, FhT0))
+    return {"ms": cuda_ms(call, K2_EAGER_REPS), "device_ms": graph_ms(call),
+            "library_ms": cuda_ms(lib, K2_EAGER_REPS),
+            "library_device_ms": graph_ms(lib)}
 
 
 @contextlib.contextmanager
@@ -381,12 +438,29 @@ def encode(frames, check: bool, device: str = "cuda",
     return [p.data for p in pkts], recon, seen
 
 
-def _fwd_work(a, k, levels: bool):
-    resid, Fv = a[0], a[1]
+def _unique_bytes(t) -> int:
+    """Bytes of the distinct elements of a tensor view: a broadcast
+    (zero-stride) dimension is read once."""
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        n *= size if stride else 1
+    return n * t.element_size()
+
+
+def _fwd_work(a, k, levels: bool, nnz: bool = False):
+    """K2's (bytes, operations): the residual, the matrices and the
+    per-block quantisers, keys and thresholds read once (a broadcast one
+    once), the levels and dequantised values (where the call writes
+    them), dist and rate (and nnz) written; 2 m n (n + m) flops a block."""
+    import torch
+
+    resid, Fv, FhT = a[0], a[1], a[2]
     n, m = resid.shape[-1], Fv.shape[-2]
     nb = resid.numel() // (n * n)
-    return (resid.numel() * 4 + Fv.numel() * 8
-            + nb * ((m * m * 8 if levels else 0) + 12),
+    ins = _unique_bytes(resid) + (Fv.numel() + FhT.numel()) * 4 + sum(
+        _unique_bytes(v) for v in (a[3], a[4], k.get("tidx"), k.get("thr"))
+        if torch.is_tensor(v))
+    return (ins + nb * ((m * m * 8 if levels else 0) + 8 + 4 * nnz),
             nb * 2 * m * n * (n + m))
 
 
@@ -557,16 +631,14 @@ WORK = {
     "band_intra_pred": lambda a, k: _intra_work(a, len(_rd_channels())),
     "frame_rd_maps_intra_pred": lambda a, k: _intra_work(
         a, len(_rd_channels())),
-    "fwd_txq": lambda a, k: _fwd_work(a, k, True),
-    # K2 with the inter race's thinning: one float threshold a block more
-    "fwd_txq_thin": lambda a, k: (
-        _fwd_work(a, k, True)[0] + a[0].numel() // a[0].shape[-1] ** 2 * 4,
-        _fwd_work(a, k, True)[1]),
+    # K2: the levels written unless the call is sums-only (levels=False)
+    "fwd_txq": lambda a, k: _fwd_work(a, k, k.get("levels", True)),
+    "fwd_txq_thin": lambda a, k: _fwd_work(a, k, k.get("levels", True)),
     "mc_pred": _mc_work,
     "me_fullpel": _me_work,
     "me_fullpel_frame": _me_work,
     "cdef_decide": _decide_work,
-    "fwd_rd_float": lambda a, k: _fwd_work(a, k, False),
+    "fwd_rd_float": lambda a, k: _fwd_work(a, k, False, nnz=True),
     "inv_txfm": lambda a, k: (a[0].numel() * 8,
                               a[0].numel() * 4 * a[0].shape[-1].bit_length()),
     "deblock": lambda a, k: _deblock_pass_work(a),
@@ -733,9 +805,15 @@ class Capture:
         orig = getattr(mod, name)
 
         def clone(v):
+            """A copy of v with its broadcast (zero-stride) dimensions
+            kept, so that a kept call reads its inputs as the pass's did."""
             if isinstance(v, (list, tuple)):
                 return type(v)(clone(x) for x in v)
-            return v.clone() if torch.is_tensor(v) else v
+            if not torch.is_tensor(v):
+                return v
+            one = tuple(slice(0, 1) if st == 0 else slice(None)
+                        for st in v.stride())
+            return v[one].clone().expand(v.shape)
 
         def spy(*a, **k):
             n = size(a, k)
@@ -745,9 +823,13 @@ class Capture:
                 kk_ = shape_key(kk_, a, k)
             self.ncalls[kk_] += 1
             self.bounds[self.stage] = self.bounds.get(self.stage, 0.0) + b
-            if kk_ not in self.calls or n > self.calls[kk_][0]:
-                self.calls[kk_] = (n, tuple(clone(v) for v in a),
-                                   {kk: clone(v) for kk, v in k.items()})
+            keys = [kk_]
+            if name == "fwd_txq" and k.get("levels") is False:
+                keys.append("fwd_txq_sums")  # K2's sums-only calls
+            for kk_ in keys:
+                if kk_ not in self.calls or n > self.calls[kk_][0]:
+                    self.calls[kk_] = (n, tuple(clone(v) for v in a),
+                                       {kk: clone(v) for kk, v in k.items()})
             return self._keep(name, orig, a, k)
 
         setattr(mod, name, spy)
@@ -786,7 +868,9 @@ def make_entry(out: list, counts: dict, frames_per_run: int):
     the path the kernel was captured on."""
 
     def entry(name, source, replaces, err, ms, plain_ms, work,
-              library_ms=None):
+              library_ms=None, **more):
+        """`more`: further measured numbers of the kernel (K2: device_ms,
+        library_device_ms), printed on its line and kept in its entry."""
         nbytes, ops = work
         tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
         print(json.dumps({"kernel": name, "max_abs_diff": err, "ms": ms,
@@ -794,13 +878,13 @@ def make_entry(out: list, counts: dict, frames_per_run: int):
                           "launches_per_frame": counts[name]
                           / frames_per_run, "bound_ms": max(tb, to),
                           "bound_by": "bytes" if tb >= to
-                          else "operations"}))
+                          else "operations", **more}))
         out.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=counts[name], launches_per_frame=counts[name]
             / frames_per_run, max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=max(tb, to), bound_by="bytes" if tb >= to
-            else "operations", library_ms=library_ms))
+            else "operations", library_ms=library_ms, **more))
 
     return entry
 
@@ -833,6 +917,83 @@ def check_fwd_ties(got, ref, a, k, name):
     return int((lv - rl).abs().max()), share
 
 
+def fwd_in_place(name, resid, Fv, FhT, tidx, qdc, qac, thr) -> None:
+    """Raise unless K2's wrapper reads every input of this call in place
+    (block_layout): one launch, no copy of a broadcast or strided input."""
+    from rav1e_tpu_torch.ops import transforms as tt
+
+    held = []
+    tt._plan((resid, Fv, FhT, tidx, qdc, qac, thr), resid.shape[:-2],
+             resid.shape[-1], Fv.shape[-2], held)
+    if held:
+        raise RuntimeError(f"{name}: K2's wrapper copies {len(held)} "
+                           "input(s) of the path's call")
+
+
+def fwd_check(name, a, k) -> dict:
+    """K2 (integer variant) on one kept call (arguments a, keywords k):
+    its full outputs held against the plain version by the tie rule
+    (check_fwd_ties); a sums-only call's (levels=False) dist and rate
+    equal to the full call's.  Returns its max level difference (err),
+    plain_ms, the times of fwd_times, its work (bytes and operations as
+    called) and, for a sums-only call, the bound with the levels counted
+    (bound_ms_with_levels)."""
+    import torch
+
+    from rav1e_tpu_torch.ops import transforms as tt
+
+    resid, Fv, FhT, qdc, qac, shift = a[:6]
+    full_k = dict(k, levels=True)
+    qd, qa = tt._as_blocks(qdc, resid), tt._as_blocks(qac, resid)
+    ti = (tt._as_blocks(k["tidx"], resid) if k.get("tidx") is not None
+          else torch.zeros(resid.shape[:-2], dtype=torch.int32,
+                           device=resid.device))
+    thr = (None if k.get("thr") is None
+           else tt._as_blocks(k["thr"], resid, torch.float32))
+    plain = lambda: tt.fwd_txq_plain(resid, Fv, FhT, ti, qd, qa, shift,
+                                     k.get("bit_depth", 8), thr)
+    fwd_in_place(name, resid, Fv, FhT, k.get("tidx"), qdc, qac, k.get("thr"))
+    full = tt.fwd_txq(*a, **full_k)
+    err, _share = check_fwd_ties(full, plain(), a, k, name)
+    more = {}
+    if k.get("levels") is False:
+        got = tt.fwd_txq(*a, **k)
+        if got[0] is not None or not (torch.equal(got[2], full[2])
+                                      and torch.equal(got[3], full[3])):
+            raise RuntimeError(f"{name}: the sums-only call's sums differ "
+                               "from the full call's")
+        more["bound_ms_with_levels"] = bound_ms(*WORK["fwd_txq"](a, full_k))
+    return dict(err=err, plain_ms=cuda_ms(plain), work=WORK["fwd_txq"](a, k),
+                full=full, more=more,
+                **fwd_times(lambda: tt.fwd_txq(*a, **k), a))
+
+
+def fwd_entry(entry, name, replaces, a, k) -> dict:
+    """fwd_check on one kept call, written as the kernel entry `name`."""
+    r = fwd_check(name, a, k)
+    entry(name, "rav1e_tpu_torch/csrc/fwd_txq.cu", replaces, r["err"],
+          r["ms"], r["plain_ms"], r["work"], library_ms=r["library_ms"],
+          device_ms=r["device_ms"],
+          library_device_ms=r["library_device_ms"], **r["more"])
+    return r
+
+
+def fwd_sums_only(calls, card: str) -> None:
+    """The largest sums-only K2 call of the run (the 13-candidate mode
+    race), checked and timed as fwd_check, on a line of its own (it is
+    no kernel entry: its launches count under fwd_txq)."""
+    if "fwd_txq_sums" not in calls:
+        raise RuntimeError("no sums-only fwd_txq call on the path")
+    _, a, k = calls["fwd_txq_sums"]
+    r = fwd_check("fwd_txq_sums", a, k)
+    print(json.dumps({"fwd_txq_sums_only": {
+        "shape": list(a[0].shape), "max_abs_diff": r["err"], "ms": r["ms"],
+        "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": bound_ms(*r["work"]), **r["more"],
+        "library_ms": r["library_ms"],
+        "library_device_ms": r["library_device_ms"], "card": card}}))
+
+
 def check_kernels(calls, counts, frames_per_run):
     """Parity, times and bounds of each kernel on its captured inputs.
     Returns the kernels JSON list."""
@@ -860,26 +1021,20 @@ def check_kernels(calls, counts, frames_per_run):
 
     # K2 fwd_txq, integer variant (the wavefront's races)
     _, a, k = calls["fwd_txq"]
-    resid, Fv, FhT, qdc, qac, shift = a[:6]
-    tidx = k.get("tidx")
-    qd = tt._as_blocks(qdc, resid)
-    qa = tt._as_blocks(qac, resid)
-    ti = (tt._as_blocks(tidx, resid) if tidx is not None else
-          torch.zeros(resid.shape[:-2], dtype=torch.int32,
-                      device=resid.device))
-    err, _share = check_fwd_ties(
-        tt.fwd_txq(*a, **k),
-        tt.fwd_txq_plain(resid, Fv, FhT, ti, qd, qa, shift), a, k, "fwd_txq")
-    Fv0, FhT0 = Fv[0], FhT[0]
-    xf = resid.float()
-    entry("fwd_txq", "rav1e_tpu_torch/csrc/fwd_txq.cu",
-          "rav1e_tpu/ops/transforms_jax.py:465", err,
-          cuda_ms(lambda: tt.fwd_txq(*a, **k)),
-          cuda_ms(lambda: tt.fwd_txq_plain(resid, Fv, FhT, ti, qd, qa,
-                                           shift)),
-          WORK["fwd_txq"](a, k),
-          library_ms=cuda_ms(lambda: torch.matmul(
-              Fv0, torch.matmul(xf, FhT0))))
+    r = fwd_entry(entry, "fwd_txq", "rav1e_tpu/ops/transforms_jax.py:465",
+                  a, k)
+    # the part of its device time that does not grow with the blocks: the
+    # same launch over the call's first block alone
+    nd = a[0].dim() - 2
+    first = lambda v: (v.expand(a[0].shape[:nd])[(slice(0, 1),) * nd]
+                       if torch.is_tensor(v) else v)
+    a1 = ((a[0][(slice(0, 1),) * nd],) + tuple(a[1:3])
+          + (first(a[3]), first(a[4])) + tuple(a[5:]))
+    k1 = {key: first(v) if key in ("tidx", "thr") else v
+          for key, v in k.items()}
+    print(json.dumps({"fwd_txq_call": {
+        "shape": list(a[0].shape), "device_ms": r["device_ms"],
+        "first_block_device_ms": graph_ms(lambda: tt.fwd_txq(*a1, **k1))}}))
 
     # K2's float-floor variant (band maps): per-block sums to fp32 order
     _, a, _k = calls["fwd_rd_float"]
@@ -1085,24 +1240,21 @@ def check_inter_kernels(calls, counts, frames_per_run):
           WORK["me_fullpel"](a, k))
 
     _, a, k = calls["fwd_txq_thin"]
-    resid, Fv, FhT, qdc, qac, shift = a[:6]
-    qd, qa = tt._as_blocks(qdc, resid), tt._as_blocks(qac, resid)
-    thr = tt._as_blocks(k["thr"], resid, torch.float32)
-    ti = torch.zeros(resid.shape[:-2], dtype=torch.int32, device=resid.device)
-    plain = lambda: tt.fwd_txq_plain(resid, Fv, FhT, ti, qd, qa, shift,
-                                     thr=thr)
-    got = tt.fwd_txq(*a, **k)
-    err, _share = check_fwd_ties(got, plain(), a, k, "fwd_txq_thin")
+    r = fwd_entry(entry, "fwd_txq_thin", "rav1e_tpu/models/wavefront.py:416",
+                  a, k)
+    got = r["full"]
     thinned = int((tt.fwd_txq(*a[:6])[0].abs() == 1).sum()
                   - (got[0].abs() == 1).sum())
-    print(json.dumps({"fwd_txq_thin_call": {"levels_thinned": thinned}}))
-    Fv0, FhT0, xf = Fv[0], FhT[0], resid.float()
-    entry("fwd_txq_thin", "rav1e_tpu_torch/csrc/fwd_txq.cu",
-          "rav1e_tpu/models/wavefront.py:416", err,
-          cuda_ms(lambda: tt.fwd_txq(*a, **k)), cuda_ms(plain),
-          WORK["fwd_txq_thin"](a, k),
-          library_ms=cuda_ms(lambda: torch.matmul(
-              Fv0, torch.matmul(xf, FhT0))))
+    # where its device time goes: the same launch sums-only (no level
+    # stores), then sums-only over one block's residual broadcast to every
+    # block (its reads hit in cache, so next to no residual bytes come
+    # from memory); the rest is the transforms and the epilogue
+    sums = lambda x: tt.fwd_txq(x, *a[1:], **dict(k, levels=False))
+    one = a[0][(0,) * (a[0].dim() - 2)].expand_as(a[0])
+    print(json.dumps({"fwd_txq_thin_call": {
+        "levels_thinned": thinned, "device_ms": r["device_ms"],
+        "sums_only_device_ms": graph_ms(lambda: sums(a[0])),
+        "one_residual_sums_only_device_ms": graph_ms(lambda: sums(one))}}))
     return out
 
 
@@ -1909,16 +2061,16 @@ def check_rd_maps(calls, rd_args, counts):
     agree = float(close.float().mean())
     if agree < 1 - FDCT_TIE_SHARE:
         raise RuntimeError(f"fwd_txq float variant agrees on {agree:.4f}")
-    resid, Fv, FhT = a[:3]
-    xf = resid.float()
+    fwd_in_place("frame_rd_maps_fwd_txq", a[0], a[1][None], a[2][None],
+                 None, a[3], a[4], None)
+    t = fwd_times(lambda: tt.fwd_rd_float(*a), a)
     entry("frame_rd_maps_fwd_txq", "rav1e_tpu_torch/csrc/fwd_txq.cu",
           "rav1e_tpu/models/device_pipeline.py:156",
-          float((d1 - d2).abs().max()),
-          cuda_ms(lambda: tt.fwd_rd_float(*a), reps=5),
+          float((d1 - d2).abs().max()), t["ms"],
           cuda_ms(lambda: tt.fwd_rd_float_plain(*a), reps=3),
-          WORK["fwd_rd_float"](a, {}),
-          library_ms=cuda_ms(lambda: torch.matmul(
-              Fv, torch.matmul(xf, FhT)), reps=5))
+          WORK["fwd_rd_float"](a, {}), library_ms=t["library_ms"],
+          device_ms=t["device_ms"],
+          library_device_ms=t["library_device_ms"])
 
     def plain_route():
         with plain_kernels():
@@ -2286,26 +2438,7 @@ def check_leaf_kernels(calls, ncalls, counts, frames_per_run,
                                                          n, full)),
                   WORK["intra_pred"](a, {}))
         elif key.startswith("fwd_txq"):
-            resid, Fv, FhT, qdc, qac, shift = a[:6]
-            qd = tt._as_blocks(qdc, resid)
-            qa = tt._as_blocks(qac, resid)
-            ti = (tt._as_blocks(k["tidx"], resid)
-                  if k.get("tidx") is not None else
-                  torch.zeros(resid.shape[:-2], dtype=torch.int32,
-                              device=resid.device))
-            err, _share = check_fwd_ties(
-                tt.fwd_txq(*a, **k),
-                tt.fwd_txq_plain(resid, Fv, FhT, ti, qd, qa, shift), a, k,
-                key)
-            Fv0, FhT0, xf = Fv[0], FhT[0], resid.float()
-            entry(key, "rav1e_tpu_torch/csrc/fwd_txq.cu",
-                  "rav1e_tpu/ops/transforms_jax.py:465", err,
-                  cuda_ms(lambda: tt.fwd_txq(*a, **k)),
-                  cuda_ms(lambda: tt.fwd_txq_plain(resid, Fv, FhT, ti, qd,
-                                                   qa, shift)),
-                  WORK["fwd_txq"](a, k),
-                  library_ms=cuda_ms(lambda: torch.matmul(
-                      Fv0, torch.matmul(xf, FhT0))))
+            fwd_entry(entry, key, "rav1e_tpu/ops/transforms_jax.py:465", a, k)
         elif key.startswith("inv_txfm"):
             coeffs, tx = a[0], a[1]
             if torch.is_tensor(tx):
@@ -2632,10 +2765,9 @@ def tiles(card: str) -> list:
     from rav1e_tpu_torch.utils.stream_check import recon_digest
 
     frames = make_frames(*TILE_SIZE, TILE_FRAMES)
-    # tune="psnr": the route ignores the psychovisual lambda map, as the
-    # JAX package's does (ROADMAP F8), so under EncoderConfig's default
-    # tune its bytes would differ from the single-device encode's
-    kw = dict(check=True, size=TILE_SIZE, tile_cols=TILE_COLS, tune="psnr")
+    # EncoderConfig's default tune (psychovisual): the route's lanes carry
+    # the lambda map, so its bytes must be the single-device encode's
+    kw = dict(check=True, size=TILE_SIZE, tile_cols=TILE_COLS)
     cap = Capture()
     kernels.reset_counts()
     torch.cuda.synchronize()
@@ -2907,7 +3039,7 @@ def multidevice(card: str, frame, packet, frame_recon, fe,
     try:
         data, recon, fes = encode([frame], check=True, device=device,
                                   size=(w, h), tile_cols=TILE_COLS,
-                                  threads=TILE_COLS, tune="psnr")
+                                  threads=TILE_COLS)
         torch.cuda.synchronize()
     finally:
         tmesh.slots_for = orig
@@ -3366,6 +3498,7 @@ def main() -> int:
     print(json.dumps({"bound_ms_per_frame": {
         k: v / NFRAMES for k, v in cap.bounds.items()}, "card": card}))
     results = check_kernels(cap.calls, counts, NFRAMES)
+    fwd_sums_only(cap.calls, card)
     t3 = time.perf_counter()
     summary = check_output(data, recon, fes, FILTER_FRAMES)
     from rav1e_tpu_torch.utils.stream_check import recon_digest

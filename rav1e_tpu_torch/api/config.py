@@ -135,8 +135,7 @@ class Config:
     pass.  Its envelope: at least 2 tile columns of equal
     superblock width, width and height multiples of 64, one tile row;
     other frames take the single-device pass.  Its bytes equal the
-    single-device encode's, except with the psychovisual lambda map or
-    segmentation on (ROADMAP F8)."""
+    single-device encode's under any tune, with segmentation on or off."""
 
     enc: EncoderConfig = field(default_factory=EncoderConfig)
     threads: int = 0

@@ -53,14 +53,14 @@ COUNTS = {k: 0 for k in KERNELS + ("fwd_txq_thin", "wiener_lr_frame",
 # nvcc's output of the last build of each kernel (ptxas: registers, spills)
 BUILD_LOGS: dict = {}
 _LIBS: dict = {}
+_FNS: dict = {}  # the bound entry point of each kernel, once loaded
 
 _vp = ctypes.c_void_p
 _ci = ctypes.c_int
 _cf = ctypes.c_float
 ARGTYPES = {
     "intra_pred": [_vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _vp, _vp, _vp, _vp],
-    "fwd_txq": [_vp, _ci, _ci, _ci, _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci,
-                _ci, _ci, _cf, _cf, _vp, _vp, _vp, _vp, _vp, _vp],
+    "fwd_txq": [ctypes.POINTER(_vp), ctypes.POINTER(_ci), _cf, _cf, _vp],
     "inv_txfm": [_vp, _vp, _ci, _ci, _ci, _vp, _ci, _ci, _ci, _ci, _vp],
     "deblock_pass": [_vp, _vp, _ci, _ci, _ci, _ci, _vp, _vp, _vp, _ci, _ci,
                      _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _vp],
@@ -174,18 +174,18 @@ def launch(name: str, on, *args, count: str | None = None) -> None:
     on another device than the current one."""
     import torch
 
-    fn = getattr(lib(name), _ENTRY[name])
-    if on.device.index != torch.cuda.current_device():
-        with torch.cuda.device(on.device):
+    dev = on.get_device()
+    if dev < 0:
+        raise ValueError(f"kernel {name}: tensor on {on.device}, not on a "
+                         "CUDA device")
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = _FNS[name] = getattr(lib(name), _ENTRY[name])
+    if dev != torch._C._cuda_getDevice():
+        with torch.cuda.device(dev):
             return launch(name, on, *args, count=count)
     COUNTS[count or name] += 1
-    check(fn(*args, stream_ptr(on)), count or name)
-
-
-def stream_ptr(t) -> int:
-    import torch
-
-    return torch.cuda.current_stream(t.device).cuda_stream
+    check(fn(*args, torch._C._cuda_getCurrentRawStream(dev)), count or name)
 
 
 def ptr(t) -> int | None:

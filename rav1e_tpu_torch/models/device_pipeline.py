@@ -55,8 +55,9 @@ DIST_SCALE = {32: 0.0164, 16: 0.0164}
 
 def _fwd_mats(n: int, device):
     Fv, FhT = tt.fwd_mats(tn.DCT_DCT, n, n)
-    return torch.as_tensor(Fv, device=device), torch.as_tensor(FhT,
-                                                               device=device)
+    # contiguous, as K2 reads them (a strided stack is copied each call)
+    return (torch.as_tensor(np.ascontiguousarray(Fv), device=device),
+            torch.as_tensor(np.ascontiguousarray(FhT), device=device))
 
 
 def source_edges(y: torch.Tensor, n: int, above_row=None):
@@ -95,11 +96,14 @@ def rd_analysis(y: torch.Tensor, n: int, q: tuple, lam: float):
     evaluated for every candidate mode and the argmin taken over it.
     q: (dc_q, ac_q).  Returns (mode, cost, nnz) maps (by, bx)."""
     blocks, stack = predict_all(y, n)
-    resid = blocks[None] - stack
+    # the residuals with the candidates last among the batch dimensions,
+    # as K1 wrote the predictions, so that K2 reads them in place (the
+    # (nmodes, by, bx) order would give a strided batch K2 must copy)
+    resid = blocks[:, :, None] - stack.permute(1, 2, 0, 3, 4)
     Fv, FhT = _fwd_mats(n, y.device)
     shift = 1 if n == 32 else 0
-    dist, rate, nnz_all = tt.fwd_rd_float(resid, Fv, FhT, int(q[0]),
-                                          int(q[1]), shift)
+    dist, rate, nnz_all = (v.permute(2, 0, 1) for v in tt.fwd_rd_float(
+        resid, Fv, FhT, int(q[0]), int(q[1]), shift))
     cost_all = dist * DIST_SCALE[n] + lam * (rate + 6.0)
     best = torch.argmin(cost_all, dim=0)
     mode_ids = torch.as_tensor(CANDIDATES, dtype=torch.int32, device=y.device)

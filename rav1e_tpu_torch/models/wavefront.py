@@ -525,7 +525,8 @@ class WavefrontPass(torch.nn.Module):
         resid_all = src[:, None] - stack
         q13 = lambda v: v[:, None].expand(Bn, 13)
         _lv, _dq, txd, rate13 = tt.fwd_txq(resid_all, Fv, FhT, q13(qdc),
-                                           q13(qac), shift, bit_depth=bd)
+                                           q13(qac), shift, bit_depth=bd,
+                                           levels=False)
         cost_all = txd * DIST_SCALE + lam[:, None] * rate13
         mask = self.base_mask[None, :] & (allow_z1[:, None] | self.not_z1[None, :])
         cost_all = torch.where(mask, cost_all, float(1 << 30))

@@ -15,6 +15,9 @@ if it cannot; on a CPU tensor it runs the plain PyTorch version beside it.
 
 from __future__ import annotations
 
+import ctypes
+import threading
+
 import numpy as np
 import torch
 
@@ -448,55 +451,190 @@ def _as_blocks(x, like, dtype=torch.int32):
         like.shape[:-2]).contiguous()
 
 
+def block_layout(v: torch.Tensor, batch, inner: int = 0):
+    """How K2 reads a per-block input in place: `v` broadcast to `batch`
+    (and, with inner = n, each block an n x n tile with strides (n, 1)).
+    Returns (div, mod, stride): block b of the flattened batch starts at
+    element ((b // div) % mod) * stride from v.data_ptr().  That holds for
+    a view whose batch dimensions are zero-stride ones, then dimensions
+    that collapse into one of uniform stride, then zero-stride ones: a
+    lane's value repeated over its candidates, one residual over tx
+    types, arange(T) keys repeated over the lanes.  None for any other
+    layout, which the caller copies.  Read from the shape and strides
+    alone (no view is made)."""
+    shape, st = v.shape, v.stride()
+    nd = len(batch)
+    if inner:
+        if shape[-2:] != (inner, inner) or (inner > 1 and (
+                st[-1] != 1 or st[-2] != inner)):
+            return None
+        shape, st = shape[:-2], st[:-2]
+    if len(shape) > nd:
+        return None
+    pad = nd - len(shape)
+    dims = []
+    for i, size in enumerate(batch):
+        s_ = shape[i - pad] if i >= pad else 1
+        if s_ != size and s_ != 1:
+            return None
+        if size != 1:
+            dims.append((size, st[i - pad] if s_ == size else 0))
+    div = 1
+    while dims and dims[-1][1] == 0:
+        div *= dims.pop()[0]
+    while dims and dims[0][1] == 0:
+        dims.pop(0)
+    if not dims:
+        return 1, 1, 0
+    mod = 1
+    prev = None
+    for size, d in dims:
+        if d == 0 or (prev is not None and prev != d * size):
+            return None
+        mod *= size
+        prev = d
+    return div, mod, dims[-1][1]
+
+
+def _per_block(v, batch, dtype, device: int, inner=0):
+    """(tensor, (div, mod, stride)) of a per-block input for the kernel:
+    the view itself where block_layout reads it in place, else a copy
+    broadcast to the batch (and made `dtype`, on CUDA device index
+    `device`)."""
+    if v.get_device() != device:
+        v = v.to(f"cuda:{device}")
+    if v.dtype == dtype:
+        lay = block_layout(v, batch, inner)
+        if lay is not None:
+            return v, lay
+    shape = tuple(batch) + ((inner, inner) if inner else ())
+    c = v.to(dtype).expand(shape).contiguous()
+    return c, (1, c.numel() // max(inner, 1) ** 2, max(inner, 1) ** 2)
+
+
 def fwd_txq(resid: torch.Tensor, Fv: torch.Tensor, FhT: torch.Tensor,
-            qdc, qac, shift: int, tidx=None, bit_depth: int = 8, thr=None):
+            qdc, qac, shift: int, tidx=None, bit_depth: int = 8, thr=None,
+            levels: bool = True):
     """Fused forward transform, quantise, dequantise and RD sums (K2).
 
     resid: (..., n, n) int32; Fv: (T, m, n) and FhT: (T, n, m) float32
     matrix stacks (m = n, or 32 for the 64-point DCT's coded corner);
     tidx: per-block index into the stacks (None: all blocks use entry 0);
-    qdc/qac: quantisers broadcast over the batch shape; thr: float32
-    level-1 thinning thresholds broadcast over the batch shape (None: no
-    thinning; launches with one count under "fwd_txq_thin").  Returns
-    (levels, dequantised) int32 (..., m, m), and float32 per-block
-    tx-domain SSE sum(((c - dq) << shift)^2) and coeff_rate(levels)."""
+    qdc/qac: quantisers (ints, or tensors broadcast over the batch
+    shape); thr: float32 level-1 thinning thresholds broadcast over the
+    batch shape (None: no thinning; launches with one count under
+    "fwd_txq_thin").  Returns (levels, dequantised) int32 (..., m, m), and
+    float32 per-block tx-domain SSE sum(((c - dq) << shift)^2) and
+    coeff_rate(levels).  With levels=False the call is sums-only: the
+    first two are None and the kernel writes neither.
+
+    On the card broadcast views (expanded quantisers, thresholds, keys
+    and residuals) are read in place (block_layout) in one launch."""
     n = resid.shape[-1]
     m = Fv.shape[-2]
-    qdc = _as_blocks(qdc, resid)
-    qac = _as_blocks(qac, resid)
-    if tidx is not None:
-        tidx = _as_blocks(tidx, resid)
-    if thr is not None:
-        thr = _as_blocks(thr, resid, torch.float32)
-    if resid.device.type == "cpu":
-        if tidx is None:
-            tidx = torch.zeros(resid.shape[:-2], dtype=torch.int32)
-        return fwd_txq_plain(resid, Fv, FhT, tidx, qdc, qac, shift, bit_depth,
-                             thr)
     batch = resid.shape[:-2]
-    x = resid.to(torch.int32).contiguous()
-    nb = x.numel() // (n * n)
-    lv = torch.empty(batch + (m, m), dtype=torch.int32, device=x.device)
-    dq = torch.empty_like(lv)
-    dist = torch.empty(batch, dtype=torch.float32, device=x.device)
-    rate = torch.empty_like(dist)
-    nnz = torch.empty(batch, dtype=torch.int32, device=x.device)
-    _launch_fwd(x, nb, n, m, Fv, FhT, tidx, qdc, qac, shift, bit_depth, 0,
-                lv, dq, dist, rate, nnz, thr)
+    if not resid.is_cuda:
+        ti = (torch.zeros(batch, dtype=torch.int32) if tidx is None
+              else _as_blocks(tidx, resid))
+        out = fwd_txq_plain(
+            resid, Fv, FhT, ti, _as_blocks(qdc, resid),
+            _as_blocks(qac, resid), shift, bit_depth,
+            None if thr is None else _as_blocks(thr, resid, torch.float32))
+        return out if levels else (None, None) + out[2:]
+    lv = dq = None
+    if levels:
+        lv, dq = resid.new_empty((2,) + batch + (m, m),
+                                 dtype=torch.int32).unbind(0)
+    dist, rate = resid.new_empty((2,) + batch,
+                                 dtype=torch.float32).unbind(0)
+    _launch_fwd(resid, batch, n, m, Fv, FhT, tidx, qdc, qac, shift,
+                bit_depth, 0, lv, dq, dist, rate, None, thr)
     return lv, dq, dist, rate
 
 
-def _launch_fwd(x, nb, n, m, Fv, FhT, tidx, qdc, qac, shift, bit_depth,
-                float_floor, lv, dq, dist, rate, nnz, thr=None):
-    Fv = Fv.to(device=x.device, dtype=torch.float32).contiguous()
-    FhT = FhT.to(device=x.device, dtype=torch.float32).contiguous()
-    kernels.launch("fwd_txq", x, x.data_ptr(), nb, n, m, Fv.data_ptr(),
-                   FhT.data_ptr(), kernels.ptr(tidx), qdc.data_ptr(),
-                   qac.data_ptr(), kernels.ptr(thr), shift, QUANT_BIAS_NUM,
-                   1 << (bit_depth + 7), float_floor, RATE_NZ, RATE_MAG,
-                   kernels.ptr(lv), kernels.ptr(dq), dist.data_ptr(),
-                   rate.data_ptr(), nnz.data_ptr(),
+_KERNEL_SHAPES = ((4, 4), (8, 8), (16, 16), (32, 32), (64, 32))
+# the pointer and integer arguments of a K2 launch, read by the C entry
+# before it returns: one buffer of each serves a thread's launches
+_ARGS = threading.local()
+# each call shape's launch plan (its layout and size ints), by the shapes,
+# strides, types and devices of its inputs; a bounded cache
+_PLANS: dict = {}
+
+
+def _launch_fwd(resid, batch, n, m, Fv, FhT, tidx, qdc, qac, shift,
+                bit_depth, float_floor, lv, dq, dist, rate, nnz, thr=None):
+    """One K2 launch over the blocks of `resid` (batch shape `batch`):
+    every per-block input read in place where its layout allows
+    (block_layout), the quantisers passed as values where they are
+    Python ints.  The layout of a call whose inputs are all read in place
+    is kept by their shapes, strides, types and devices (_PLANS), so a
+    repeated call shape costs a dictionary lookup."""
+    ins = (resid, Fv, FhT, tidx, qdc, qac, thr)
+    key = tuple(map(_signature, ins))
+    plan = _PLANS.get(key)
+    held = []  # copies made here live until the launch is enqueued
+    if plan is None:
+        plan, ins = _plan(ins, batch, n, m, held)
+        if not held:
+            if len(_PLANS) >= 4096:
+                _PLANS.clear()
+            _PLANS[key] = plan
+    ptrs = [None if v is None or not torch.is_tensor(v) else v.data_ptr()
+            for v in ins]
+    bufs = getattr(_ARGS, "bufs", None)
+    if bufs is None:
+        bufs = _ARGS.bufs = ((ctypes.c_void_p * 12)(), (ctypes.c_int * 25)())
+    bufs[1][:] = plan + (0 if ptrs[4] else int(qdc),
+                         0 if ptrs[5] else int(qac), shift, QUANT_BIAS_NUM,
+                         1 << (bit_depth + 7), float_floor)
+    bufs[0][:] = ptrs + [None if o is None else o.data_ptr()
+                         for o in (lv, dq, dist, rate, nnz)]
+    kernels.launch("fwd_txq", resid, *bufs, RATE_NZ, RATE_MAG,
                    count="fwd_txq" if thr is None else "fwd_txq_thin")
+
+
+def _signature(v):
+    return ((v.shape, v.stride(), v.dtype, v.get_device())
+            if torch.is_tensor(v) else type(v))
+
+
+def _plan(ins, batch, n, m, held):
+    """(the launch's layout and size ints, the inputs as the kernel reads
+    them): the matrices made contiguous float32, every per-block input
+    through _per_block; copies are appended to `held`."""
+    resid, Fv, FhT = ins[:3]
+    didx = resid.get_device()
+    mats = []
+    for a in (Fv, FhT):
+        if a.dtype != torch.float32 or a.get_device() != didx or \
+                not a.is_contiguous():
+            a = a.to(device=resid.device, dtype=torch.float32).contiguous()
+            held.append(a)
+        mats.append(a)
+    T = mats[0].shape[0]
+    if ((n, m) not in _KERNEL_SHAPES or mats[0].shape != (T, m, n)
+            or mats[1].shape != (T, n, m)):
+        raise ValueError(f"fwd_txq: no kernel for n={n}, m={m} and matrix "
+                         f"stacks {tuple(Fv.shape)}, {tuple(FhT.shape)}")
+    x, lay = _per_block(resid, batch, torch.int32, didx, n)
+    if x is not resid:
+        held.append(x)
+    out = [x] + mats
+    for v, dt in zip(ins[3:], (torch.int32, torch.int32, torch.int32,
+                               torch.float32)):
+        if v is None or not torch.is_tensor(v):
+            lay += (1, 1, 0)
+            out.append(v)
+            continue
+        c, vl = _per_block(v, batch, dt, didx)
+        if c is not v:
+            held.append(c)
+        out.append(c)
+        lay += vl
+    nb = 1
+    for d in batch:
+        nb *= d
+    return lay + (nb, n, m, T), out
 
 
 def fwd_rd_float_plain(resid, Fv, FhT, dc_q: int, ac_q: int, shift: int):
@@ -523,17 +661,13 @@ def fwd_rd_float(resid: torch.Tensor, Fv: torch.Tensor, FhT: torch.Tensor,
                  dc_q: int, ac_q: int, shift: int):
     """K2, float-floor variant: per-block (unscaled tx-domain SSE, rate,
     nnz) of (..., n, n) int32 residuals under one (n, n) DCT pair."""
-    if resid.device.type == "cpu":
+    if not resid.is_cuda:
         return fwd_rd_float_plain(resid, Fv, FhT, dc_q, ac_q, shift)
     n = resid.shape[-1]
     batch = resid.shape[:-2]
-    x = resid.to(torch.int32).contiguous()
-    nb = x.numel() // (n * n)
-    qdc = torch.full((nb,), int(dc_q), dtype=torch.int32, device=x.device)
-    qac = torch.full((nb,), int(ac_q), dtype=torch.int32, device=x.device)
-    dist = torch.empty(batch, dtype=torch.float32, device=x.device)
-    rate = torch.empty_like(dist)
-    nnz = torch.empty(batch, dtype=torch.int32, device=x.device)
-    _launch_fwd(x, nb, n, n, Fv[None], FhT[None], None, qdc, qac, shift, 8,
-                1, None, None, dist, rate, nnz)
+    dist, rate = resid.new_empty((2,) + batch,
+                                 dtype=torch.float32).unbind(0)
+    nnz = resid.new_empty(batch, dtype=torch.int32)
+    _launch_fwd(resid, batch, n, n, Fv[None], FhT[None], None, int(dc_q),
+                int(ac_q), shift, 8, 1, None, None, dist, rate, nnz)
     return dist, rate, nnz

@@ -17,11 +17,12 @@ in column order, so the bytes do not depend on the slots.
 
 The route's envelope is the JAX package's: at least 2 tile columns of
 equal superblock width, no partial superblock, one tile row (a frame with
-tile rows is accepted at launch and declined at collect, as there).  Its
-lane parameters are uniform (lambda, dc_q, ac_q of the frame): the
-psychovisual lambda map and segment quantisers are not applied, as in
-the JAX route (ROADMAP F8), so with either on its bytes differ from the
-single-device encode's.
+tile rows is accepted at launch and declined at collect, as there).  Each
+column's lanes carry the lambda and quantisers of the superblocks they
+code, from the frame's psychovisual lambda map and segment map, as the
+single-device pass's do, so the route writes the single-device encode's
+bytes under any tune (the JAX route fills every lane with the frame's own
+values: ROADMAP F8).
 
 The result has no device-resident recon (`dev_out`) and no packed
 records: the frame takes the per-superblock cache walk and the host
@@ -33,6 +34,8 @@ neighbour's device.
 """
 
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -96,6 +99,17 @@ def _in_envelope(fe, tiles) -> bool:
                 or fe.coded_h % 64)
 
 
+def column_grids(fe, geom, t: int, tw: int):
+    """Tile column t's (lambda, dc_q, ac_q) lane grids over the
+    tile-relative geometry `geom` (tw superblock columns a tile): the
+    single-device pass's per-quadrant values (wavefront._fill_lane_params)
+    at the column's frame coordinates."""
+    grids = wfm._uniform_grids(fe, geom)
+    wfm._fill_lane_params(fe, SimpleNamespace(
+        sbr=geom.sbr, sbc=geom.sbc + t * tw, valid=geom.valid), *grids)
+    return grids
+
+
 def run_wavefront_sharded(fe, tiles, mesh):
     """The pass over the frame's tile columns: each slot of the mesh one
     pass over its contiguous columns' stacked lanes.  Requirements:
@@ -122,7 +136,6 @@ def run_wavefront_sharded(fe, tiles, mesh):
     # the single-device pass's flags (drift here would desync the
     # byte-identical contract)
     flags = wfm._pass_flags(fe)
-    grids = wfm._uniform_grids(fe, geom)
     bits = wfm._mode_bit_params(fe)
     groups = mesh.groups(ncols)
     if any(dev.type == "cuda" for dev, _ in groups):
@@ -136,7 +149,8 @@ def run_wavefront_sharded(fe, tiles, mesh):
                             flags[8], device=dev)
         srcs = [[p[:, (t * tile_w) >> s : ((t + 1) * tile_w) >> s]
                  for p, s in zip(fe.src, (0, 1, 1))] for t in cols]
-        up = torch.from_numpy(wfm.pack_upload(srcs, [grids] * F, bits)).to(dev)
+        grids = [column_grids(fe, geom, t, tw) for t in cols]
+        up = torch.from_numpy(wfm.pack_upload(srcs, grids, bits)).to(dev)
         outs.append((F, fn(up, *wfm._geom_dev(geom, dev, F))))
     results = [wfm.unpack_wavefront(geom, part) for F, out in outs
                for part in wfm.split_batch(out, F, B, fe.h)]

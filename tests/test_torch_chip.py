@@ -9,7 +9,8 @@ the four of the leaves also at the speed-3 pass's 8x8 and 4x4 shapes,
 and above 8 bits cdef_dir, cdef_filter, wiener_lr in frame mode and
 me_fullpel on uint16 planes; frame_rd_maps by its tie rule;
 fwd_txq, with and without the inter race's thinning, within its
-rounding-tie share), and the paths that drive them (among them the tile
+rounding-tie share, also on the pass's broadcast views, read in place,
+and sums-only), and the paths that drive them (among them the tile
 route of Config(threads=4) with 4 tile columns, also over 2 slots, and
 the sharded deblock at 8 and 10 bits; the LR decision of a chain without
 its fused stage, RAV1E_TPU_LR_FUSE=0, over wiener_lr), and the
@@ -95,6 +96,82 @@ def test_fwd_txq_kernel(n):
         d2, r2, z2 = tt.fwd_rd_float_plain(resid, Fv[0], FhT[0], 116, 140,
                                            shift)
         assert (z1 == z2).float().mean() >= 0.98
+
+
+@pytest.mark.parametrize("case", ["types5_8", "types5_16", "uv2x7_4",
+                                  "race13_32_sums", "race7_64", "thin_16",
+                                  "copied_16", "scalar_32"])
+def test_fwd_txq_broadcast_kernel(case):
+    """K2 on the pass's broadcast views, read in place (block_layout):
+    one launch a call, the outputs bit-identical to a launch on the
+    views' contiguous copies; a sums-only call's sums equal the full
+    call's; the levels within the tie rule of the plain version."""
+    from rav1e_tpu_torch import kernels
+    from rav1e_tpu_torch.ops import transforms as tt
+    from rav1e_tpu_torch.ops import transforms_np as tn
+
+    dev = _card()
+    rng = np.random.default_rng(SEED + len(case))
+    kind, n = case.split("_")[0], int(case.split("_")[1])
+    m = min(n, 32)
+    types = ((tn.DCT_DCT, tn.ADST_ADST, tn.ADST_DCT, tn.DCT_ADST, tn.IDTX)
+             if kind in ("types5", "uv2x7") else (tn.DCT_DCT,))
+    mats = [tt.fwd_mats(t, n, n) for t in types]
+    Fv = torch.as_tensor(np.stack([a[:m] for a, _ in mats]), device=dev)
+    FhT = torch.as_tensor(np.stack([b[:, :m] for _, b in mats]), device=dev)
+    B = 45
+    t = lambda a, dt=torch.int32: torch.as_tensor(a, device=dev, dtype=dt)
+    qdc = t(rng.integers(20, 300, B))
+    qac = t(rng.integers(20, 300, B))
+    lane = {"types5": (5,), "uv2x7": (2, 7), "race13": (13,), "race7": (7,),
+            "thin": (6,), "copied": (3,), "scalar": (4,)}[kind]
+    ex = lambda v: v.reshape((B,) + (1,) * len(lane)).expand((B,) + lane)
+    k = {}
+    if kind == "types5":
+        resid = t(rng.integers(-120, 121, (B, n, n)))[:, None].expand(
+            B, 5, n, n)
+        k["tidx"] = torch.arange(5, dtype=torch.int32, device=dev).expand(
+            B, 5)
+    else:
+        resid = t(rng.integers(-120, 121, (B,) + lane + (n, n)))
+    if kind == "uv2x7":
+        k["tidx"] = t([0, 0, 0, 0, 0, 1, 4]).expand(B, 2, 7)
+    if kind == "thin":
+        k["thr"] = ex(t(rng.random(B) * 300 + 100, torch.float32))
+    if kind == "race13":
+        k["levels"] = False
+    q = (ex(qdc), ex(qac))
+    if kind == "copied":  # a layout block_layout declines: copied
+        q = (t(rng.integers(20, 300, (3, B))).t(), ex(qac))
+        assert tt.block_layout(q[0], (B, 3)) is None
+    if kind == "scalar":
+        q = (116, 140)
+    shift = {4: 0, 8: 0, 16: 0, 32: 1, 64: 2}[n]
+    before = dict(kernels.COUNTS)
+    got = tt.fwd_txq(resid, Fv, FhT, *q, shift, **k)
+    name = "fwd_txq_thin" if kind == "thin" else "fwd_txq"
+    assert kernels.COUNTS[name] == before[name] + 1
+    dense = lambda v: (v.expand(resid.shape[:-2]).contiguous()
+                       if torch.is_tensor(v) else v)
+    kd = {kk: dense(v) if kk != "levels" else v for kk, v in k.items()}
+    ref = tt.fwd_txq(resid.contiguous(), Fv, FhT, *map(dense, q), shift,
+                     **kd)
+    for g, r in zip(got, ref):
+        assert (g is None and r is None) or torch.equal(g, r)
+    full = tt.fwd_txq(resid, Fv, FhT, *q, shift, **dict(k, levels=True))
+    assert torch.equal(full[2], got[2]) and torch.equal(full[3], got[3])
+    ti = (dense(k["tidx"]) if "tidx" in k else
+          torch.zeros(resid.shape[:-2], dtype=torch.int32, device=dev))
+    rl, rdq, _rdist, rrate = tt.fwd_txq_plain(
+        resid, Fv, FhT, ti, tt._as_blocks(q[0], resid),
+        tt._as_blocks(q[1], resid), shift,
+        thr=dense(k["thr"]) if "thr" in k else None)
+    lv, dq = full[0], full[1]
+    bad = (lv != rl) | (dq != rdq)
+    assert (lv - rl).abs().max() <= 1
+    assert bad.float().mean() <= 1e-3
+    clean = ~bad.flatten(-2).any(-1)
+    assert torch.allclose(full[3][clean], rrate[clean], rtol=1e-4)
 
 
 @pytest.mark.parametrize("n,tx", [(8, 0), (8, 3), (16, 1), (16, 2), (16, 9),

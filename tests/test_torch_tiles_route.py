@@ -13,9 +13,9 @@ The port takes the JAX fdct (its own may round an fp32 tie the other
 way) and, where a device filter chain runs, the JAX chain's Wiener taps;
 with its own it is held against its own single-device encode, whose bytes
 the route must write (the JAX package's contract,
-tests/test_multichip.py), except where the JAX route ignores the
-psychovisual lambda map (ROADMAP F8).  The JAX route itself breaks that
-contract on the second frame of the 512x256 clip: its vmapped pass
+tests/test_multichip.py), also with the psychovisual lambda map or the
+segment quantisers on, which the JAX route ignores (ROADMAP F8, fixed in
+the port).  The JAX route itself breaks that contract on the second frame of the 512x256 clip: its vmapped pass
 decides some superblocks otherwise than its single-device pass (ROADMAP F9,
 held by test_jax_route_differs_from_its_single_pass); the port's route
 equals the single-device pass there too.
@@ -46,7 +46,7 @@ W, H, T = 512, 256, 4  # 8 x 4 superblocks, 4 tile columns of 2
 
 
 def _encode(pkg, frames, threads, tile_cols, speed=6, tune="psnr",
-            every_key=True, chains=None, **cfg_kw):
+            every_key=True, chains=None, segmentation_aq=False, **cfg_kw):
     """Encode `frames` (y, u, v) through Config -> Context of `pkg` at
     bench.py's keyframe settings (quantizer 100, low latency), every frame
     a key frame or (every_key=False) one key frame then P frames.
@@ -64,6 +64,7 @@ def _encode(pkg, frames, threads, tile_cols, speed=6, tune="psnr",
         width=w, height=h, quantizer=100, min_key_frame_interval=1,
         max_key_frame_interval=kint, rdo_lookahead_frames=8,
         low_latency=True, tune=tune, tile_cols=tile_cols,
+        segmentation_aq=segmentation_aq,
         speed_settings=C.SpeedSettings.from_preset(speed)),
         threads=threads, **cfg_kw)
     inter = []
@@ -306,10 +307,10 @@ def test_facade_records_match_the_single_pass(clip):
         assert np.array_equal(route.rec[p], single.rec[p])
 
 
-def test_psychovisual_route_has_uniform_lanes(clip, monkeypatch):
-    """tune="psychovisual": the route packs uniform lambda grids, as the
-    JAX route does, and writes its bytes given the JAX fdct; the
-    single-device pass applies the lambda map, so its bytes differ (F8)."""
+def _route_equals_single(frames, monkeypatch, grid, **kw):
+    """The tile route's lanes carry the frame's per-superblock values
+    (lane grid `grid`: 0 lambda, 1 dc_q) where they vary, and its bytes
+    and recon equal the port's single-device encode's."""
     from rav1e_tpu_torch.models import wavefront as twf
 
     grids = []
@@ -317,18 +318,50 @@ def test_psychovisual_route_has_uniform_lanes(clip, monkeypatch):
     monkeypatch.setattr(twf, "pack_upload",
                         lambda srcs, g, *a: grids.append(g) or orig(srcs, g,
                                                                     *a))
+    mine = _port(frames, T, T, **kw)
+    assert mine["routes"] == {"tiles": 1}
+    route = np.concatenate([g[grid] for g in grids[-1]], axis=1)
+    assert (route != route.flat[0]).any()
+    single = _port(frames, 0, T, **kw)
+    assert single["routes"] == {"single": 1}
+    _same(mine, single)
+
+
+def test_psychovisual_route_has_uniform_lanes(clip, monkeypatch):
+    """tune="psychovisual" on the JAX route (F8, unfixed there): it fills
+    every lane with the frame's own lambda, so its bytes are the port's
+    route's with uniform lane grids (each column given the frame's
+    `_uniform_grids`), given the JAX fdct, and differ from the port's
+    single-device bytes."""
+    from rav1e_tpu_torch.models import wavefront as twf
+    from rav1e_tpu_torch.parallel import tiles as ttiles
+
     one = clip[:1]
     jout = _encode("rav1e_tpu", one, T, T, tune="psychovisual")
-    mine = _port(one, T, T, jax_fdct=True, monkeypatch=monkeypatch,
-                 tune="psychovisual")
-    assert mine["routes"] == {"tiles": 1}
-    lam = np.concatenate([g[0] for g in grids[-1]], axis=1)
-    assert (lam == lam.flat[0]).all()
-    _same(mine, jout)
+    with monkeypatch.context() as m:
+        m.setattr(ttiles, "column_grids",
+                  lambda fe, geom, t, tw: twf._uniform_grids(fe, geom))
+        uniform = _port(one, T, T, jax_fdct=True, monkeypatch=m,
+                        tune="psychovisual")
+    assert uniform["routes"] == {"tiles": 1}
+    _same(uniform, jout)
     single = _port(one, 0, T, tune="psychovisual")
-    lam1 = grids[-1][0][0]
-    assert (lam1 != lam1.flat[0]).any()
-    assert single["data"][0] != mine["data"][0]
+    assert single["data"][0] != uniform["data"][0]
+
+
+def test_psychovisual_route_writes_single_device_bytes(clip, monkeypatch):
+    """tune="psychovisual" (F8, fixed in the port): the route's lanes
+    carry the psychovisual lambda map, column by column, and its bytes
+    equal the port's single-device bytes."""
+    _route_equals_single(clip[:1], monkeypatch, 0, tune="psychovisual")
+
+
+def test_segmentation_route_writes_single_device_bytes(clip, monkeypatch):
+    """segmentation_aq (F8, fixed in the port): the route's lanes carry
+    the segment quantisers, and its bytes equal the port's single-device
+    bytes."""
+    _route_equals_single(clip[:1], monkeypatch, 1, tune="psnr",
+                         segmentation_aq=True)
 
 
 # -- the route's edges ------------------------------------------------------------
