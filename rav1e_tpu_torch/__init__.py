@@ -44,8 +44,7 @@ source-edge analysis functions of the JAX package that no encode path
 calls are here too: models/device_pipeline.py mode_analysis,
 frame_mode_maps, intra_analysis_step and their sharded forms,
 ops/intra.py dr_predict_batch, predict_stack, build_edges_batch and
-ops/mc.py put_single_batch.  What raises NotImplementedError names its
-ROADMAP item: segmentation on inter wavefront frames: queue 1 item 10.
+ops/mc.py put_single_batch.
 
 Layout:
   api/      Config / Context / EncoderStatus public API

@@ -230,10 +230,13 @@ class InterFrameEncoder(IntraFrameEncoder):
         finally:
             self._wf_launched = None
         self._install_wavefront(wf)
-        if self.seg_map is not None:
-            raise NotImplementedError("segmentation on inter wavefront "
-                                      "frames: ROADMAP queue 1 item 10")
-        return self._encode_tiles_native(wf)
+        if self.seg_map is None:
+            return self._encode_tiles_native(wf)
+        # with a segmentation map the installed pass result feeds the host
+        # walk, which codes the segment ids (rav1e_tpu/models/inter_frame.py
+        # _encode_tiles)
+        with self.stats.stage("host_walk"):
+            return super()._encode_tiles()
 
     def _encode_tiles_native(self, wf):
         """Native two-pass flow for wavefront inter frames: pass A fills the

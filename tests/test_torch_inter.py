@@ -51,13 +51,13 @@ SEED = 20261017
 
 
 def _encode(pkg: str, launches: list | None = None,
-            chains: list | None = None, **cfg_kw):
+            chains: list | None = None, seg: bool = False, **cfg_kw):
     """Encode NF frames of the bench content in bench.py's mixed-GOP
-    configuration.  Returns (packet bytes, frame types, recon planes per
-    frame).  With `launches`, every wavefront launch is recorded as
-    (build_pass args, upload, geometry arrays, outputs) in numpy; with
-    `chains` (the JAX package), every filter chain's (taps, en, the CDEF
-    output they were solved for)."""
+    configuration (with seg, segmentation_aq on).  Returns (packet
+    bytes, frame types, recon planes per frame).  With `launches`, every
+    wavefront launch is recorded as (build_pass args, upload, geometry
+    arrays, outputs) in numpy; with `chains` (the JAX package), every
+    filter chain's (taps, en, the CDEF output they were solved for)."""
     import importlib
 
     C = importlib.import_module(pkg + ".api.config")
@@ -66,7 +66,7 @@ def _encode(pkg: str, launches: list | None = None,
     wf = importlib.import_module(pkg + ".models.wavefront")
     cfg = C.Config(enc=C.EncoderConfig(
         width=W, height=H, quantizer=100, max_key_frame_interval=240,
-        rdo_lookahead_frames=8, low_latency=True,
+        rdo_lookahead_frames=8, low_latency=True, segmentation_aq=seg,
         speed_settings=C.SpeedSettings.from_preset(6)), **cfg_kw)
     undo = []
     if launches is not None:
@@ -403,6 +403,47 @@ def test_streams_decode_to_recon(jax_run):
     _decodes_to(jax_run[0], jax_run[2])
     # CPU tensors run the plain versions: nothing was launched
     assert not any(kernels.COUNTS.values())
+
+
+@pytest.fixture(scope="module")
+def jax_seg_run():
+    chains = []
+    data, types, recon = _encode("rav1e_tpu", chains=chains, seg=True)
+    return data, types, recon, chains
+
+
+def test_segmentation_stream_matches_jax_given_its_fdct(jax_seg_run,
+                                                         monkeypatch):
+    """EncoderConfig(segmentation_aq=True), 1 key + 2 P frames: the key
+    frame codes its segment ids and per-segment quantisers, the P frames
+    take the inter wavefront (the Context gives inter frames no
+    segmentation map, in both packages); given the JAX fdct and the JAX
+    chain's taps, the port writes the JAX package's bytes and recon, and
+    its stream decodes with libdav1d to that recon."""
+    from rav1e_tpu_torch.models import inter_frame as tif
+    from rav1e_tpu_torch.ops import lrf as tlr
+
+    jdata, jtypes, jrecon, chains = jax_seg_run
+    assert jtypes == ["key"] + ["inter"] * (NF - 1)
+    installed = []
+    orig = tif.InterFrameEncoder._install_wavefront
+
+    def install(self, wf):
+        installed.append(self.seg_map is not None)
+        return orig(self, wf)
+
+    monkeypatch.setattr(tif.InterFrameEncoder, "_install_wavefront", install)
+    monkeypatch.setattr(tt, "fdct_plain", _jax_fdct)
+    monkeypatch.setattr(tlr, "wiener_solve_plain", _jax_taps(chains))
+    data, types, recon = _encode("rav1e_tpu_torch", seg=True, device="cpu")
+    assert installed == [False] * (NF - 1)
+    assert types == jtypes
+    assert data == jdata
+    for f in range(NF):
+        for p in range(3):
+            assert np.array_equal(np.asarray(recon[f][p]),
+                                  np.asarray(jrecon[f][p])), (f, p)
+    _decodes_to(data, recon)
 
 
 # -- what the path must not do --------------------------------------------------------
