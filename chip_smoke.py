@@ -6,11 +6,11 @@
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the fourteen CUDA kernels (csrc/*.cu, one nvcc each, in parallel)
    and the native entropy library, and prints the build seconds.
-3. Drives the main path once: 8 key frames of 1920x1080 through Config ->
-   Context in bench.py's keyframe configuration (speed-6 defaults, so
-   CDEF and loop restoration on; quantizer 100, low latency).  Every
-   kernel's launch count is set to 0 just before and read just after;
-   each of the eight must have launched.
+3. Drives the main path once: NFRAMES key frames of 1920x1080 through
+   Config -> Context in bench.py's keyframe configuration (speed-6
+   defaults, so CDEF and loop restoration on; quantizer 100, low
+   latency).  Every kernel's launch count is set to 0 just before and
+   read just after; each of the eight must have launched.
 4. Holds each kernel against its plain PyTorch version on the card, on the
    inputs the main path gave it (the largest call of each):
    intra_pred, inv_txfm, deblock, cdef_dir, cdef_filter (search and
@@ -28,6 +28,15 @@
    time that does not grow with the blocks), and the largest sums-only
    call (the 13-candidate mode race, levels=False), whose sums must
    equal the full call's, with its bound with and without the levels.
+   intra_pred's entry is the key pass's largest race (the fine-direction
+   pick of the 32x32 leaves), inv_txfm's the pass's largest call (the
+   64x64 root's fused reconstruction from its 32x32 corner), each with
+   device_ms (graph_ms) and host_ms (the wrapper's issue time: 100 calls
+   with no synchronize between them) beside ms; the largest of K1's
+   channel-list and U+V calls and of K3's fused, 64x64 and per-type
+   calls are held against their plain versions and timed on a line of
+   their own (k1_k3_modes), as they are, untimed, on phases 8, 9, 10, 12
+   and 13.
 5. Checks the output: with libdav1d present the stream decodes to the
    encoder's recon; in every case 16 sampled superblocks a frame re-derive
    from their records with the numpy oracles onto the pre-filter recon,
@@ -36,19 +45,20 @@
    pre-filter frame, give the output recon exactly.  Prints each frame's
    recon SHA-256 and its restoring LR units on the bottom unit row (with
    --save-stream, writes DIR/key.ivf and DIR/key_recon.json).
-6. Drives the keyframe path with CDEF and loop restoration off on 2
-   frames, with the counts set to 0 before it: K1-K4 must launch, and its
-   output is checked the same way.
+6. Drives the keyframe path with CDEF and loop restoration off on
+   OFF_FRAMES frames, with the counts set to 0 before it: K1-K4 must
+   launch, and its output is checked the same way.
 7. Times a second encode of the first KEY_TIMED frames of the main path
    (frames/s), then an encode of the first four with each device stage
    timed serialised (wavefront pass, band maps, the filter chain and,
    inside it, CDEF and LR); with --profile also under torch.profiler (the
    card's busy time by kernel; minutes).  Times the CDEF decision glue
    (ops/cdef.py decide) alone beside its bound.
-8. Drives the mixed-GOP path: bench.py's mixed configuration (its 1 key
-   + 15 inter frames of 1920x1080, max_key_frame_interval 240, low
-   latency, speed-6 defaults), with the counts set to 0 before it.  All
-   15 inter frames must take the inter wavefront, every kernel
+8. Drives the mixed-GOP path: bench.py's mixed configuration (its GOP
+   cut to MIXED_FRAMES frames of 1920x1080: 1 key + 5 inter,
+   max_key_frame_interval 240, low latency, speed-6 defaults), with the
+   counts set to 0 before it.  All inter frames must take the inter
+   wavefront, every kernel
    but the speed-5 path's must launch (K9 mc_pred, K10 me_fullpel and
    fwd_txq with thinning among them), and
    blocks must choose inter prediction with nonzero MVs.  Holds K9 and
@@ -72,10 +82,10 @@
    with the coded parameters, and counts the restoration units by kind.
    Then CFL_FRAMES frames of content whose chroma follows its luma (the
    bench content seldom picks CFL): CFL must win blocks, and the
-   superblocks holding them re-derive. A timed second encode of KEY_TIMED
-   frames must write the same bytes; a 320x240 key frame takes the
-   small-frame CDEF route (_cdef_search, cdef_frame_device); a GOP of 1
-   key + 3 inter frames at speed 5 takes the inter pass.
+   superblocks holding them re-derive. A timed second encode of
+   SPEED5_TIMED frames must write the same bytes; a 320x240 key frame
+   takes the small-frame CDEF route (_cdef_search, cdef_frame_device); a
+   GOP of 1 key + 1 inter frame at speed 5 takes the inter pass.
 10. Drives the default configuration: EncoderConfig(width=1920,
    height=1080, quantizer=100, rdo_lookahead_frames=8), everything else
    at its defaults (low_latency=False: pyramid sub-GOPs of 4 with
@@ -93,12 +103,11 @@
    parameters; prints each displayed frame's recon SHA-256 (with
    --save-stream, writes the stream and the digests to DIR for
    rav1e_tpu_torch/utils/stream_check.py to decode where libdav1d is);
-   a second encode must write the same bytes, and gives the frames/s and
-   stage seconds (me_maps, interp_probe, host_walk, deblock_host,
-   cdef_host, lr_decide, lr_emit).
+   gives the counted encode's frames/s and stage seconds (me_maps,
+   interp_probe, host_walk, deblock_host, cdef_host, lr_decide, lr_emit).
 11. Drives the path above 8 bits: EncoderConfig(width=1920, height=1080,
    quantizer=100, rdo_lookahead_frames=8, bit_depth=10), HBD_FRAMES
-   frames of 10-bit bench content (1 key + one sub-GOP of 4), with the
+   frames of 10-bit bench content (1 key + a sub-GOP of 2), with the
    counts set to 0 before it.  No frame may take the wavefront or the
    chain (K4, K7, K9, K11 and the pass's K3 and K10 idle): the key frame
    must take frame_rd_maps (K1 and K2's float variant twice each), the
@@ -116,12 +125,12 @@
    quantizer 0, ROADMAP F6); re-derives HBD_FILTER_FRAMES frames through
    deblock_np, cdef_np and lrf_np at 10 bits; prints the recon digests
    (16-bit samples; --save-stream writes DIR/hbd.ivf and
-   DIR/hbd_recon.json); a second encode must write the same bytes, and
-   gives the frames/s and stage seconds.
+   DIR/hbd_recon.json); gives the counted encode's frames/s and stage
+   seconds.
 12. Drives the speed-3 path: bench.py's keyframe configuration at
    SpeedSettings.from_preset(3) (the pass's 8x8 level: each 16x16 leaf
    raced against its four 8x8 leaves; then speed 5's host filter path),
-   SPEED3_FRAMES frames (frame 0's pass alone, then one batch of 3), with
+   SPEED3_FRAMES frames (frame 0's pass alone, then one batch of 2), with
    the counts set to 0 before it, the encode timed (frames/s, stage
    seconds).  K1-K3, K5, K6, K8's frame mode and K11 must launch, K4 and
    K7 must not; every frame must choose 8x8 leaves.  Holds the largest
@@ -191,9 +200,18 @@
    chroma and a 10-bit plane with the SHARP filter set.  Each identical
    to its plain version, and its largest call timed beside the plain
    version and its bound.
+16. Drives the segmentation GOP: SEG_FRAMES frames of SEG_SIZE in the
+   mixed GOP's configuration with EncoderConfig(segmentation_aq=True),
+   with the counts set to 0 before it: the key frame codes segment ids,
+   the P frames take the inter wavefront (K1-K3, K9, K10 and K2's
+   thinning must launch); the P frames' superblocks re-derive and the
+   last one's numpy filter chain gives its output (with --save-stream,
+   writes DIR/seg.ivf and DIR/seg_recon.json).
 
 Before the kernels line it prints the wall seconds of phases 1-7
-together and of each later phase (phase_wall_s).  The line before the
+together and of each later phase (phase_wall_s), and nvcc's ptxas lines
+of every kernel's entry functions (each of K3's and K1's instantiations:
+registers, stack frame, spills) after the build.  The line before the
 last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero.
 """
@@ -207,28 +225,35 @@ import sys
 import time
 from pathlib import Path
 
-W, H, NFRAMES = 1920, 1080, 8
-MIXED_FRAMES = 16  # bench.py's mixed GOP: 1 key + 15 inter
-# depth cuts that keep the script inside its time limit (PERF.md section 4):
-MIXED_TIMED = 8  # frames of the mixed GOP's timed second encode
-SPEED5_FRAMES = 4  # key frames of the speed-5 path (phase 9)
+# depth cuts that keep the script inside half its time limit (PERF.md
+# section 4): every path keeps its configuration and frame size, and runs
+# fewer frames
+W, H, NFRAMES = 1920, 1080, 4  # key frames of the main path
+MIXED_FRAMES = 6  # bench.py's mixed GOP cut to 1 key + 5 inter
+MIXED_TIMED = 3  # frames of the mixed GOP's timed second encode
+SPEED5_FRAMES = 2  # key frames of the speed-5 path (phase 9)
+SPEED5_TIMED = 1  # frames of the speed-5 path's timed second encode
 DEFAULT_FRAMES = 5  # EncoderConfig()'s pyramid: 1 key + one sub-GOP of 4
 #                     (the first ALTREF on the inter wavefront, 3 host
 #                     frames with LAST2 and compound references)
 DEFAULT_FILTER_FRAMES = 2  # host frames re-derived through the numpy filters
-CFL_FRAMES = 2  # speed-5 key frames of content whose chroma follows luma
-GOP5_FRAMES = 4  # the speed-5 GOP: 1 key + 3 inter
-KEY_TIMED = 4  # frames of the keyframe path's timed second encode
+CFL_FRAMES = 1  # speed-5 key frames of content whose chroma follows luma
+GOP5_FRAMES = 2  # the speed-5 GOP: 1 key + 1 inter
+KEY_TIMED = 2  # frames of the keyframe path's timed second encode
 SB_SAMPLES = 16
 FILTER_FRAMES = 1  # frames whose whole filter chain is re-derived in numpy
-INTER_FILTER_FRAMES = 2  # inter frames of the mixed GOP re-derived so
-OFF_FRAMES = 2  # frames of the CDEF/LR-off path
+INTER_FILTER_FRAMES = 1  # inter frames of the mixed GOP re-derived so
+OFF_FRAMES = 1  # frames of the CDEF/LR-off path
 WIENER_TIE = 1e-9  # |coef * 128 - (k + .5)| where a tap may round apart
 FDCT_TIE_SHARE = 1e-3
 RD_TIE = 1e-5  # relative gap of two RD costs that fp32 order may flip
-HBD_FRAMES = 5  # EncoderConfig()'s pyramid: 1 key + one sub-GOP of 4
+HBD_FRAMES = 3  # EncoderConfig()'s pyramid cut to 1 key + a sub-GOP of 2
+#                 (the ALTREF, then a host frame with compound references);
+#                 phases 10 and 11 time their counted encode (the captures
+#                 cost no measurable time: the card timed both) and run
+#                 no second encode
 HBD_BD = 10
-HBD_FILTER_FRAMES = 2  # frames re-derived through the numpy filters
+HBD_FILTER_FRAMES = 1  # frames re-derived through the numpy filters
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 PEAK_FP32 = 67e12  # H100 SXM fp32 outside the tensor cores, FLOP/s
 
@@ -282,6 +307,22 @@ def graph_ms(fn, reps: int = 20) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def host_ms(fn, reps: int = 100) -> float:
+    """The host's issue time of one call of fn: `reps` calls back to back
+    with no synchronize between them (the card runs behind), the host
+    clock around them."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return t
 
 
 K2_EAGER_REPS = 100  # back-to-back calls a K2 ms: the host's issue time
@@ -368,7 +409,8 @@ def checked(check: bool = True):
 def encode(frames, check: bool, device: str = "cuda",
            filters: bool = True, mixed: bool = False, speed: int = 6,
            size=None, default: bool = False, bit_depth: int = 8,
-           tile_cols: int = 0, threads: int = 0, tune=None):
+           tile_cols: int = 0, threads: int = 0, tune=None,
+           seg: bool = False):
     """Encode `frames` through the public API on `device`, in bench.py's
     keyframe configuration (filters=False: with CDEF and loop restoration
     off), or with mixed in its mixed-GOP configuration (a key frame, then
@@ -376,8 +418,9 @@ def encode(frames, check: bool, device: str = "cuda",
     (low_latency=False: pyramid sub-GOPs, multiref, show_existing_frame
     packets), at SpeedSettings.from_preset(speed), W x H (or size) and
     bit_depth, with tile_cols tile columns and Config(threads=threads)
-    (threads > 1 and tile_cols > 1: the key frames' tile route) and, if
-    given, tune (EncoderConfig's own default otherwise).  With
+    (threads > 1 and tile_cols > 1: the key frames' tile route), with seg
+    segmentation_aq on, and, if given, tune (EncoderConfig's own default
+    otherwise).  With
     check, keep each frame's pre-filter planes, output recon and wavefront
     records; the encoders that took a wavefront are returned in coding
     order, and every encoder in encode.all_fes."""
@@ -404,6 +447,7 @@ def encode(frames, check: bool, device: str = "cuda",
             max_key_frame_interval=1, rdo_lookahead_frames=8,
             low_latency=True, speed_settings=ss, bit_depth=bit_depth)
     enc.tile_cols = tile_cols
+    enc.segmentation_aq = seg
     if tune is not None:
         enc.tune = tune
     cfg = Config(enc=enc, device=device, threads=threads)
@@ -608,29 +652,63 @@ def _decide_work(a, k):
             + nsb * 4 + 16, nsb * 8 * 5 + skip.numel())
 
 
-def _intra_work(a, nch):
-    """K1 (intra_pred) writing nch channels: the edges and availability
-    flags read, nch predictions of every lane written; ~10 a sample."""
-    out = a[0].shape[0] * nch * a[4] ** 2
-    return a[0].numel() * 8 + a[2].numel() * 2 + out * 4, out * 10
+def k1_call(a, k) -> dict:
+    """A K1 call's shape from intra_pred's arguments a, k: its planes,
+    lanes, n, the channels it writes and whether it is the race."""
+    above = a[0]
+    planes = len(above) if isinstance(above, (tuple, list)) else 1
+    first = above[0] if planes > 1 else above
+    race = k.get("src") is not None
+    full = a[5] if len(a) > 5 else k.get("full", True)
+    chans = a[7] if len(a) > 7 else k.get("channels")
+    nch = 13 if race else len(chans) if chans is not None else (
+        61 if full else 7)
+    return dict(planes=planes, lanes=first.shape[0], n=a[4], nch=nch,
+                race=race)
 
 
-def _rd_channels():
-    from rav1e_tpu_torch.models.device_pipeline import _CHANNELS
+K1_OPS = 10  # a predicted sample: position, shift, taps, blend and round
+SAD_DELTA_OPS = 3  # a race sample and delta: subtract, absolute, accumulate
 
-    return _CHANNELS
+
+def _intra_work(a, k):
+    """K1's (bytes, operations): the edges and availability flags read,
+    the channels it writes of every lane and plane written (~K1_OPS a
+    sample); the race also reads the source block and allow_z1, predicts
+    the 56 directional variants and the 5 others and sums the SADs, and
+    writes the 13-candidate stack and the 8 picks a lane."""
+    c = k1_call(a, k)
+    B, nn = c["lanes"], c["n"] ** 2
+    edges = c["planes"] * B * (2 * c["n"] + 1) * 8 + 2 * B
+    out = c["planes"] * B * c["nch"] * nn
+    if c["race"]:
+        return (edges + B + B * nn * 4 + out * 4 + B * 8 * 4,
+                B * nn * (61 * K1_OPS + 56 * SAD_DELTA_OPS))
+    return edges + out * 4, out * K1_OPS
+
+
+def _inv_work(a, k):
+    """K3's (bytes, operations): the coefficients and per-block types read
+    once (a broadcast once), the output written, the prediction read where
+    the reconstruction is fused; ~4 log2(n) a sample."""
+    import torch
+
+    coeffs, tx = a[0], a[1]
+    nb = coeffs.numel() // (coeffs.shape[-1] * coeffs.shape[-2])
+    hh, ww = (64, 64) if k.get("tx64") else coeffs.shape[-2:]
+    out = nb * hh * ww
+    pred = k.get("pred")
+    return (_unique_bytes(coeffs) + (_unique_bytes(tx) if torch.is_tensor(tx)
+                                     else 0)
+            + out * 4 * (2 if pred is not None else 1),
+            out * 4 * ww.bit_length())
 
 
 # (bytes, operations) of one call of each kernel from its arguments: each
 # input read once, each output written once; operations are fp32 FLOPs
 # (K2) or integer operations (the rest), counted per sample
 WORK = {
-    "intra_pred": lambda a, k: _intra_work(a, 61 if a[5] else 7),
-    # K1 under predict_all (the band maps, frame_rd_maps): the kernel
-    # writes all 61 channels, the function needs the 10 candidates'
-    "band_intra_pred": lambda a, k: _intra_work(a, len(_rd_channels())),
-    "frame_rd_maps_intra_pred": lambda a, k: _intra_work(
-        a, len(_rd_channels())),
+    "intra_pred": _intra_work,
     # K2: the levels written unless the call is sums-only (levels=False)
     "fwd_txq": lambda a, k: _fwd_work(a, k, k.get("levels", True)),
     "fwd_txq_thin": lambda a, k: _fwd_work(a, k, k.get("levels", True)),
@@ -639,8 +717,7 @@ WORK = {
     "me_fullpel_frame": _me_work,
     "cdef_decide": _decide_work,
     "fwd_rd_float": lambda a, k: _fwd_work(a, k, False, nnz=True),
-    "inv_txfm": lambda a, k: (a[0].numel() * 8,
-                              a[0].numel() * 4 * a[0].shape[-1].bit_length()),
+    "inv_txfm": _inv_work,
     "deblock": lambda a, k: _deblock_pass_work(a),
     # K5: ~14 a sample (bins and weighted squares)
     "cdef_dir": lambda a, k: (a[0].numel() * 4 + a[0].numel() // 64 * 8,
@@ -656,23 +733,49 @@ WORK = {
 }
 
 
+# K1's calls by mode: the fine-direction race ("intra_pred", the key
+# pass's luma leaves), a channel list on one plane ("intra_pred_list")
+# and on U and V at once ("intra_pred_uv")
+K1_MODES = ("intra_pred", "intra_pred_list", "intra_pred_uv")
+# K3's calls kept besides the largest ("inv_txfm"), one of each mode: the
+# fused reconstruction, the 64x64 transform of a 32x32 corner, a tx type
+# a block
+K3_MODES = ("inv_txfm_pred", "inv_txfm_tx64", "inv_txfm_types")
+
+
+def k1_mode(a, k) -> str:
+    c = k1_call(a, k)
+    return ("intra_pred" if c["race"] else
+            "intra_pred_uv" if c["planes"] == 2 else "intra_pred_list")
+
+
+def k3_modes(a, k) -> list:
+    import torch
+
+    return ([] if k.get("pred") is None or k.get("tx64")
+            else ["inv_txfm_pred"]) + (["inv_txfm_tx64"] if k.get("tx64")
+                                       else []) + (
+        ["inv_txfm_types"] if torch.is_tensor(a[1]) else [])
+
+
 # the kernels Capture(shapes=True) keys by shape, and the shapes the
-# speed-3 pass adds (phase 12): K1 at n = 8 with the full channel set (the
-# 8x8 luma leaf) and at n = 4 with the non-directional one (its chroma),
-# K2 and K3 over the 8x8 luma leaf's five tx types (a lane's blocks
-# (5, 8, 8)) and the 4x4 uv race (two planes of seven candidates,
-# (2, 7, 4, 4)), K11 on 8x8 luma
-SHAPED = ("intra_pred", "fwd_txq", "inv_txfm", "cfl")
-SPEED3_SHAPES = ("intra_pred_n8_full", "intra_pred_n4_nondir",
+# speed-3 pass adds (phase 12): K1's race at n = 8 (the 8x8 luma leaf) and
+# its U and V list at n = 4 (the leaf's chroma), K2 and K3 over the 8x8
+# luma leaf's five tx types (a lane's blocks (5, 8, 8)) and the 4x4 uv
+# race (two planes of seven candidates, (2, 7, 4, 4)), K11 on 8x8 luma
+SHAPED = K1_MODES + ("fwd_txq", "inv_txfm", "cfl")
+SPEED3_SHAPES = ("intra_pred_n8_race", "intra_pred_n4_uv",
                  "fwd_txq_n8_5", "fwd_txq_n4_2x7", "inv_txfm_n8_5",
                  "inv_txfm_n4_2x7", "cfl_n8")
 
 
 def shape_key(key: str, a, k) -> str:
-    """key with the call's shape: n and K1's channel set, or the blocks a
-    lane holds (the dimensions between the lanes and the n x n block)."""
-    if key == "intra_pred":
-        return f"{key}_n{a[4]}_{'full' if a[5] else 'nondir'}"
+    """key with the call's shape: n and K1's mode, or the blocks a lane
+    holds (the dimensions between the lanes and the n x n block)."""
+    if key in K1_MODES:
+        mode = {"intra_pred": "race", "intra_pred_list": "list",
+                "intra_pred_uv": "uv"}[key]
+        return f"intra_pred_n{a[4]}_{mode}"
     lane = "x".join(str(d) for d in a[0].shape[1:-2])
     return f"{key}_n{a[0].shape[-1]}" + (f"_{lane}" if lane else "")
 
@@ -766,8 +869,8 @@ class Capture:
                 (intra, "intra_pred",
                  lambda a, k: {"band_maps": "band_intra_pred",
                                "rd_maps": "frame_rd_maps_intra_pred"}.get(
-                                   self.stage, "intra_pred"),
-                 lambda a, k: a[0].shape[0] * (61 if a[5] else 7) * a[4] ** 2),
+                                   self.stage, k1_mode(a, k)),
+                 lambda a, k: _intra_work(a, k)[0]),
                 (transforms, "fwd_txq",
                  lambda a, k: ("fwd_txq" if k.get("thr") is None
                                else "fwd_txq_thin"),
@@ -781,7 +884,7 @@ class Capture:
                 (transforms, "fwd_rd_float", "fwd_rd_float",
                  lambda a, k: a[0].numel()),
                 (transforms, "inv_txfm", "inv_txfm",
-                 lambda a, k: a[0].numel()),
+                 lambda a, k: _inv_work(a, k)[0]),
                 (deblock, "deblock_pass", "deblock",
                  lambda a, k: a[0].numel())):
             self._wrap(mod, name, key, size)
@@ -826,6 +929,8 @@ class Capture:
             keys = [kk_]
             if name == "fwd_txq" and k.get("levels") is False:
                 keys.append("fwd_txq_sums")  # K2's sums-only calls
+            if name == "inv_txfm":
+                keys += k3_modes(a, k)
             for kk_ in keys:
                 if kk_ not in self.calls or n > self.calls[kk_][0]:
                     self.calls[kk_] = (n, tuple(clone(v) for v in a),
@@ -994,30 +1099,76 @@ def fwd_sums_only(calls, card: str) -> None:
         "library_device_ms": r["library_device_ms"], "card": card}}))
 
 
+def k1_check(name, a, k, reps: int = 20, plain_reps: int = 20,
+             timed: bool = True) -> dict:
+    """K1 on one kept call (intra_pred's arguments a, k): identical to
+    its plain version on the same card tensors; with timed, its eager ms,
+    device_ms (graph_ms) and the plain version's ms."""
+    from rav1e_tpu_torch.ops import intra
+
+    call = lambda: intra.intra_pred(*a, **k)
+    plain = lambda: intra.intra_pred_plain(*a, **k)
+    r = dict(err=_same(call(), plain(), name), work=WORK["intra_pred"](a, k))
+    if timed:
+        r.update(ms=cuda_ms(call, reps), plain_ms=cuda_ms(plain, plain_reps),
+                 device_ms=graph_ms(call, reps), host_ms=host_ms(call, reps))
+    return r
+
+
+def k3_check(name, a, k, timed: bool = True) -> dict:
+    """K3 on one kept call (inv_txfm's arguments a, k): identical to its
+    plain route (inv_txfm_types_plain: per type, the padding of tx64 and
+    the clamp of pred) on the same card tensors; with timed, its eager
+    ms, device_ms and the plain route's ms."""
+    from rav1e_tpu_torch.ops import transforms as tt
+
+    call = lambda: tt.inv_txfm(*a, **k)
+    plain = lambda: tt.inv_txfm_types_plain(*a, **k)
+    r = dict(err=_same(call(), plain(), name), work=WORK["inv_txfm"](a, k))
+    if timed:
+        r.update(ms=cuda_ms(call), plain_ms=cuda_ms(plain),
+                 device_ms=graph_ms(call), host_ms=host_ms(call))
+    return r
+
+
+def check_modes(calls, path: str, card: str, timed: bool = False,
+                keys=K1_MODES[1:] + K3_MODES) -> None:
+    """K1's list and U+V calls and K3's fused, tx64 and per-type calls:
+    the largest kept call of each mode on this path held against its
+    plain version (identical), on a line of its own (with timed, also
+    its ms, device_ms and bound; the launches count under the kernel's
+    entries)."""
+    out = {}
+    for key in keys:
+        if key not in calls:
+            continue
+        _, a, k = calls[key]
+        chk = k1_check if key.startswith("intra_pred") else k3_check
+        r = chk(key, a, k, timed=timed)
+        first = a[0][0] if isinstance(a[0], (tuple, list)) else a[0]
+        out[key] = {"shape": list(first.shape), "max_abs_diff": r["err"],
+                    "bound_ms": bound_ms(*r["work"]),
+                    **{m: r[m] for m in ("ms", "device_ms", "host_ms",
+                                         "plain_ms") if m in r}}
+    print(json.dumps({"k1_k3_modes": out, "path": path, "card": card}))
+
+
 def check_kernels(calls, counts, frames_per_run):
     """Parity, times and bounds of each kernel on its captured inputs.
     Returns the kernels JSON list."""
     import torch
 
-    from rav1e_tpu_torch.ops import deblock, intra, transforms as tt
+    from rav1e_tpu_torch.ops import deblock, transforms as tt
 
     out = []
     entry = make_entry(out, counts, frames_per_run)
 
-    # K1 intra_pred
-    _, a, _k = calls["intra_pred"]
-    above, left, ha, hl, n, full = a[:6]
-    got = intra.intra_pred(*a)
-    ref = intra.intra_pred_plain(above, left, ha, hl, n, full)
-    err = int((got - ref).abs().max())
-    if err:
-        raise RuntimeError(f"intra_pred differs from its plain version: {err}")
+    # K1 intra_pred: the key pass's largest race (the 32x32 leaves)
+    _, a, k = calls["intra_pred"]
+    r = k1_check("intra_pred", a, k)
     entry("intra_pred", "rav1e_tpu_torch/csrc/intra_pred.cu",
-          "rav1e_tpu/ops/intra_jax.py:305", err,
-          cuda_ms(lambda: intra.intra_pred(*a)),
-          cuda_ms(lambda: intra.intra_pred_plain(above, left, ha, hl, n,
-                                                 full)),
-          WORK["intra_pred"](a, {}))
+          "rav1e_tpu/ops/intra_jax.py:305", r["err"], r["ms"], r["plain_ms"],
+          r["work"], device_ms=r["device_ms"], host_ms=r["host_ms"])
 
     # K2 fwd_txq, integer variant (the wavefront's races)
     _, a, k = calls["fwd_txq"]
@@ -1048,28 +1199,13 @@ def check_kernels(calls, counts, frames_per_run):
     if agree < 0.99:
         raise RuntimeError(f"fwd_txq float variant agrees on {agree:.3f}")
 
-    # K3 inv_txfm
+    # K3 inv_txfm: the path's largest call (the 64x64 root's luma)
     _, a, k = calls["inv_txfm"]
-    got = tt.inv_txfm(*a, **k)
-    coeffs, tx = a[0], a[1]
-    if torch.is_tensor(tx):
-        ref = torch.empty_like(got)
-        types = tx.reshape(coeffs.shape[:-2])
-        for t in torch.unique(types).tolist():
-            sel = types == t
-            ref[sel] = tt.inv_txfm_plain(coeffs[sel], t)
-        plain = lambda: [tt.inv_txfm_plain(coeffs[types == t], t)
-                         for t in torch.unique(types).tolist()]
-    else:
-        ref = tt.inv_txfm_plain(coeffs, int(tx))
-        plain = lambda: tt.inv_txfm_plain(coeffs, int(tx))
-    err = int((got - ref).abs().max())
-    if err:
-        raise RuntimeError(f"inv_txfm differs from its plain version: {err}")
+    r = k3_check("inv_txfm", a, k)
     entry("inv_txfm", "rav1e_tpu_torch/csrc/inv_txfm.cu",
-          "rav1e_tpu/ops/transforms_jax.py:432", err,
-          cuda_ms(lambda: tt.inv_txfm(*a, **k)), cuda_ms(plain),
-          WORK["inv_txfm"](a, k))
+          "rav1e_tpu/ops/transforms_jax.py:432", r["err"], r["ms"],
+          r["plain_ms"], r["work"], device_ms=r["device_ms"],
+          host_ms=r["host_ms"])
 
     # K4 deblock (one direction of one plane; the largest is luma)
     _, a, k = calls["deblock"]
@@ -1544,6 +1680,7 @@ def mixed_gop(card: str) -> list:
     print(json.dumps({"mixed_bound_ms_per_frame": {
         k: v / MIXED_FRAMES for k, v in cap.bounds.items()}, "card": card}))
     results = check_inter_kernels(cap.calls, counts, MIXED_FRAMES)
+    check_modes(cap.calls, "mixed_gop", card)
     t1 = time.perf_counter()
     summary = check_output(data, recon, fes, INTER_FILTER_FRAMES)
     print(json.dumps({"mixed_output": summary, "bytes": sum(map(len, data)),
@@ -1761,6 +1898,7 @@ def speed5(card: str) -> list:
     print(json.dumps({"speed5_bound_ms_per_frame": {
         k: v / SPEED5_FRAMES for k, v in cap.bounds.items()}, "card": card}))
     results = check_speed5_kernels(cap.calls, counts, SPEED5_FRAMES)
+    check_modes(cap.calls, "speed5", card)
     print(json.dumps({"speed5_cdef_route": time_cdef_route(cap.calls),
                       "card": card}))
     t1 = time.perf_counter()
@@ -1782,14 +1920,14 @@ def speed5(card: str) -> list:
         raise RuntimeError("no block chose CFL on the speed-5 path")
 
     t2 = time.perf_counter()
-    data2, _, _ = encode(frames[:KEY_TIMED], check=False, speed=5)
+    data2, _, _ = encode(frames[:SPEED5_TIMED], check=False, speed=5)
     torch.cuda.synchronize()
     t_enc = time.perf_counter() - t2
-    if data2 != data[:KEY_TIMED]:
+    if data2 != data[:SPEED5_TIMED]:
         raise RuntimeError("the second speed-5 encode wrote other bytes")
     print(json.dumps({"speed5_encode": {
-        "frames": KEY_TIMED, "size": f"{W}x{H}", "seconds": t_enc,
-        "fps": KEY_TIMED / t_enc, "stages_s": encode.stages, "card": card}}))
+        "frames": SPEED5_TIMED, "size": f"{W}x{H}", "seconds": t_enc,
+        "fps": SPEED5_TIMED / t_enc, "stages_s": encode.stages, "card": card}}))
 
     # the small-frame route: the sampled host CDEF search and
     # cdef_frame_device (coded area under 640x480)
@@ -1810,7 +1948,7 @@ def speed5(card: str) -> list:
         "cdef_frame_route": time_cdef_frame(s_cap.calls),
         "output": check_output(s_data, s_recon, s_fes, 1), "card": card}}))
 
-    # 1 key + 3 inter frames at speed 5 (the inter pass; the same host
+    # 1 key + 1 inter frame at speed 5 (the inter pass; the same host
     # filter path)
     kernels.reset_counts()
     g_frames = make_frames(W, H, GOP5_FRAMES)
@@ -1896,13 +2034,14 @@ def default_gop(card: str) -> list:
                 if k.get("count") == "me_fullpel_frame"]
     counts = dict(kernels.COUNTS)
     fes = encode.all_fes
+    stages = encode.stages
     inter = [fe for fe in fes if isinstance(fe, InterFrameEncoder)]
     host = [fe for fe in inter if not fe.wf_inter]
     paths = [frame_path(fe) for fe in inter]
     print(json.dumps({"default_path_launches": counts,
                       "first_encode_s": t_first,
                       "packets": encode.frame_types, "frames": paths,
-                      "stages_s": encode.stages, "card": card}))
+                      "stages_s": stages, "card": card}))
     if len(fes) != DEFAULT_FRAMES or len(inter) != DEFAULT_FRAMES - 1:
         raise RuntimeError(f"{len(fes)} frames coded of {DEFAULT_FRAMES}")
     if not (inter[0].wf_inter and inter[0].ref_ids == [mvp.LAST_FRAME]):
@@ -1924,6 +2063,7 @@ def default_gop(card: str) -> list:
     print(json.dumps({"default_bound_ms_per_frame": {
         k: v / DEFAULT_FRAMES for k, v in cap.bounds.items()},
         "card": card}))
+    check_modes(cap.calls, "default_gop", card)
     results = check_me_frame(me_calls, counts, DEFAULT_FRAMES)
     del me_calls[:]
 
@@ -1942,18 +2082,11 @@ def default_gop(card: str) -> list:
         "recon_sha256": digests},
         "bytes": sum(map(len, data)), "check_s": time.perf_counter() - t1}))
     save_stream("default", data, {"recon_sha256": digests})
-
-    t2 = time.perf_counter()
-    data2, _, _ = encode(frames, check=False, default=True)
-    torch.cuda.synchronize()
-    t_enc = time.perf_counter() - t2
-    if data2 != data:
-        raise RuntimeError("the second default-config encode wrote other "
-                           "bytes")
+    # the counted encode's own seconds (no second encode: see HBD_FRAMES)
     print(json.dumps({"default_encode": {
-        "frames": DEFAULT_FRAMES, "size": f"{W}x{H}", "seconds": t_enc,
-        "fps": DEFAULT_FRAMES / t_enc, "stages_s": encode.stages,
-        "card": card}}))
+        "frames": DEFAULT_FRAMES, "size": f"{W}x{H}", "seconds": t_first,
+        "fps": DEFAULT_FRAMES / t_first, "stages_s": stages,
+        "counted_encode": True, "card": card}}))
     return results
 
 
@@ -2025,7 +2158,7 @@ def check_rd_maps(calls, rd_args, counts):
     import torch
 
     from rav1e_tpu_torch.models import device_pipeline as dp
-    from rav1e_tpu_torch.ops import intra, transforms as tt
+    from rav1e_tpu_torch.ops import transforms as tt
 
     out = []
     entry = make_entry(out, counts, HBD_FRAMES)
@@ -2045,14 +2178,12 @@ def check_rd_maps(calls, rd_args, counts):
         return (d * dp.DIST_SCALE[n] + lam_t * (r + 6.0)).cpu().numpy()
 
     ties = rd_map_ties(got, ref, table_of)
-    _, a, _k = calls["frame_rd_maps_intra_pred"]
-    err = _same(intra.intra_pred(*a), intra.intra_pred_plain(*a),
-                "intra_pred (frame_rd_maps)")
+    _, a, k = calls["frame_rd_maps_intra_pred"]
+    r = k1_check("intra_pred (frame_rd_maps)", a, k, reps=5, plain_reps=3)
     entry("frame_rd_maps_intra_pred", "rav1e_tpu_torch/csrc/intra_pred.cu",
-          "rav1e_tpu/models/device_pipeline.py:49", err,
-          cuda_ms(lambda: intra.intra_pred(*a), reps=5),
-          cuda_ms(lambda: intra.intra_pred_plain(*a), reps=3),
-          WORK["frame_rd_maps_intra_pred"](a, {}))
+          "rav1e_tpu/models/device_pipeline.py:49", r["err"], r["ms"],
+          r["plain_ms"], r["work"], device_ms=r["device_ms"],
+          host_ms=r["host_ms"])
     _, a, _k = calls["fwd_rd_float"]
     d1, r1, z1 = tt.fwd_rd_float(*a)
     d2, r2, z2 = tt.fwd_rd_float_plain(*a)
@@ -2292,6 +2423,7 @@ def hbd_gop(card: str) -> list:
     t_first = time.perf_counter() - t0
     counts = dict(kernels.COUNTS)
     fes = encode.all_fes
+    stages = encode.stages
     inter = [fe for fe in fes if isinstance(fe, InterFrameEncoder)]
     paths = [dict(frame_path(fe),
                   cdef_strengths=list(fe.cdef_strengths or ()),
@@ -2302,7 +2434,7 @@ def hbd_gop(card: str) -> list:
                                     list(fes[0].cdef_strengths or ()),
                                     "lr_types": [int(x) for x in
                                                  fes[0].lr_types]},
-                      "frames": paths, "stages_s": encode.stages,
+                      "frames": paths, "stages_s": stages,
                       "card": card}))
     if wf or len(fes) != HBD_FRAMES or len(inter) != HBD_FRAMES - 1:
         raise RuntimeError(f"{len(wf)} wavefront frames, {len(fes)} coded "
@@ -2356,25 +2488,19 @@ def hbd_gop(card: str) -> list:
         "recon_sha256": digests},
         "bytes": sum(map(len, data)), "check_s": time.perf_counter() - t1}))
     save_stream("hbd", data, {"recon_sha256": digests, "bit_depth": HBD_BD})
-
-    t2 = time.perf_counter()
-    data2, _, _ = encode(frames, check=False, default=True, bit_depth=HBD_BD)
-    torch.cuda.synchronize()
-    t_enc = time.perf_counter() - t2
-    if data2 != data:
-        raise RuntimeError("the second 10-bit encode wrote other bytes")
+    # the counted encode's own seconds (no second encode: see HBD_FRAMES)
     print(json.dumps({"hbd_encode": {
         "frames": HBD_FRAMES, "size": f"{W}x{H}", "bit_depth": HBD_BD,
-        "seconds": t_enc, "fps": HBD_FRAMES / t_enc,
-        "stages_s": encode.stages, "card": card}}))
+        "seconds": t_first, "fps": HBD_FRAMES / t_first,
+        "stages_s": stages, "counted_encode": True, "card": card}}))
     return results
 
 
 # phase 12, speed 3: the keyframe pass with its 8x8 level (and CFL), then
 # the host filter path of speed 5
 # key frames: the Context runs frame 0's pass alone and batches frames
-# 1-3 (launch_wavefront_batch, F = 3)
-SPEED3_FRAMES = 4
+# 1-2 (launch_wavefront_batch, F = 2)
+SPEED3_FRAMES = 3
 SPLIT8_SAMPLES = 8  # superblocks holding 8x8 leaves re-derived a frame
 CLI_SIZE, CLI_FRAMES = (320, 240), 2
 
@@ -2418,56 +2544,40 @@ def check_leaf_kernels(calls, ncalls, counts, frames_per_run,
     version, its bound and, for K2, the torch.matmul forward transform.
     `launches` is the kernel's count on the phase's run, `shape_launches`
     its calls at the shape.  Returns the kernels JSON list."""
-    import torch
-
-    from rav1e_tpu_torch.ops import intra, transforms as tt
+    from rav1e_tpu_torch.ops import intra
 
     out = []
     entry = make_entry(out, counts, frames_per_run)
     for key in keys:
         _, a, k = calls[key]
         if key.startswith("intra_pred"):
-            above, left, ha, hl, n, full = a[:6]
-            err = _same(intra.intra_pred(*a), intra.intra_pred_plain(
-                above, left, ha, hl, n, full), key)
+            r = k1_check(key, a, k)
             entry(key, "rav1e_tpu_torch/csrc/intra_pred.cu",
-                  "rav1e_tpu/ops/intra_jax.py:305" if full else
-                  "rav1e_tpu/models/wavefront.py:520", err,
-                  cuda_ms(lambda: intra.intra_pred(*a)),
-                  cuda_ms(lambda: intra.intra_pred_plain(above, left, ha, hl,
-                                                         n, full)),
-                  WORK["intra_pred"](a, {}))
+                  "rav1e_tpu/ops/intra_jax.py:305"
+                  if k1_call(a, k)["race"] else
+                  "rav1e_tpu/models/wavefront.py:520", r["err"], r["ms"],
+                  r["plain_ms"], r["work"], device_ms=r["device_ms"],
+                  host_ms=r["host_ms"])
         elif key.startswith("fwd_txq"):
             fwd_entry(entry, key, "rav1e_tpu/ops/transforms_jax.py:465", a, k)
         elif key.startswith("inv_txfm"):
-            coeffs, tx = a[0], a[1]
-            if torch.is_tensor(tx):
-                types = tx.reshape(coeffs.shape[:-2])
-                plain = lambda: [(types == t, tt.inv_txfm_plain(
-                    coeffs[types == t], t))
-                    for t in torch.unique(types).tolist()]
-                ref = torch.empty_like(coeffs, dtype=torch.int32)
-                for sel, r in plain():
-                    ref[sel] = r
-            else:
-                plain = lambda: tt.inv_txfm_plain(coeffs, int(tx))
-                ref = plain()
-            err = _same(tt.inv_txfm(*a, **k), ref, key)
+            r = k3_check(key, a, k)
             entry(key, "rav1e_tpu_torch/csrc/inv_txfm.cu",
-                  "rav1e_tpu/ops/transforms_jax.py:432", err,
-                  cuda_ms(lambda: tt.inv_txfm(*a, **k)), cuda_ms(plain),
-                  WORK["inv_txfm"](a, k))
+                  "rav1e_tpu/ops/transforms_jax.py:432", r["err"], r["ms"],
+                  r["plain_ms"], r["work"], device_ms=r["device_ms"],
+                  host_ms=r["host_ms"])
         else:
             err = _same(intra.cfl(*a), intra.cfl_plain(*a), key)
             entry(key, "rav1e_tpu_torch/csrc/cfl.cu",
                   "rav1e_tpu/ops/intra_jax.py:317", err,
                   cuda_ms(lambda: intra.cfl(*a)),
                   cuda_ms(lambda: intra.cfl_plain(*a)), WORK["cfl"](a, {}))
-        lead = a[0].shape[:1] if key.startswith("intra_pred") else \
-            a[0].shape[:-2]
+        first = a[0][0] if isinstance(a[0], (tuple, list)) else a[0]
+        lead = first.shape[:1] if key.startswith("intra_pred") else \
+            first.shape[:-2]
         out[-1].update(shape_launches=ncalls[key],
                        shape_launches_per_frame=ncalls[key] / frames_per_run,
-                       largest_call=list(lead) + [int(a[0].shape[-1])])
+                       largest_call=list(lead) + [int(first.shape[-1])])
     return out
 
 
@@ -2616,6 +2726,7 @@ def speed3(card: str) -> list:
     shape_counts = {key: counts[key.split("_n")[0]] for key in SPEED3_SHAPES}
     results = check_leaf_kernels(cap.calls, cap.ncalls, shape_counts,
                                    SPEED3_FRAMES)
+    check_modes(cap.calls, "speed3", card)
     t1 = time.perf_counter()
     digests = [recon_digest(r) for r in recon]
     print(json.dumps({"speed3_output": {
@@ -2628,7 +2739,7 @@ def speed3(card: str) -> list:
     return results
 
 
-TILE_SIZE, TILE_FRAMES, TILE_COLS = (2560, 1600), 2, 4  # WQXGA: 40 x 25 SBs
+TILE_SIZE, TILE_FRAMES, TILE_COLS = (2560, 1600), 1, 4  # WQXGA: 40 x 25 SBs
 TILE_KERNELS = ("intra_pred", "fwd_txq", "inv_txfm")
 # the host filter path of the route's frames: K5 and K6 through the CDEF
 # search outside the chain; the chain's K4 deblock, K7 tap solve and K8's
@@ -2828,6 +2939,7 @@ def tiles(card: str) -> list:
         keys=tuple(renames.values()))
     for r in results:
         r["path"] = "rav1e_tpu/parallel/tiles.py:78 run_wavefront_sharded"
+    check_modes(cap.calls, "tiles", card)
     t2 = time.perf_counter()
     edges = sum(rederive_tile_edges(fe) for fe in fes)
     if not recon_check.filters_match(fes[0], fes[0]._chk_prefilter,
@@ -3431,6 +3543,64 @@ def analysis(card: str, key_fps: float, device: str = "cuda") -> list:
     return results
 
 
+SEG_SIZE = (320, 240)  # the size of tests/test_torch_inter.py's GOP
+SEG_FRAMES = 3  # 1 key + 2 P frames
+SEG_LAUNCHED = ("intra_pred", "fwd_txq", "inv_txfm", "mc_pred", "me_fullpel",
+                "fwd_txq_thin")
+
+
+def seg_gop(card: str) -> list:
+    """The segmentation GOP (phase 16): SEG_FRAMES frames of SEG_SIZE in
+    the mixed GOP's configuration with EncoderConfig(segmentation_aq=True),
+    with the counts set to 0 before it.  The key frame codes segment ids
+    and per-segment quantisers on the key pass; the P frames (to which the
+    Context gives no segmentation map) take the inter wavefront, K1-K3,
+    K9, K10 and K2's thinning launching.  The P frames' sampled
+    superblocks re-derive and the last one's numpy filter chain gives its
+    output; with --save-stream writes DIR/seg.ivf and DIR/seg_recon.json
+    for utils/stream_check.py to decode.  Prints its seconds."""
+    import torch
+
+    from rav1e_tpu_torch import kernels
+    from rav1e_tpu_torch.utils import recon_check
+    from rav1e_tpu_torch.utils.content import make_frames
+    from rav1e_tpu_torch.utils.stream_check import recon_digest
+
+    frames = make_frames(*SEG_SIZE, SEG_FRAMES)
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    data, recon, fes = encode(frames, check=True, mixed=True, size=SEG_SIZE,
+                              seg=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(kernels.COUNTS)
+    segmented = [fe.seg_map is not None for fe in encode.all_fes]
+    inter = [fe for fe in fes if fe._chk_wf.has_mv]
+    missing = [k for k in SEG_LAUNCHED if counts[k] == 0]
+    if (missing or encode.frame_types != ["key"] + ["inter"] * (SEG_FRAMES - 1)
+            or len(inter) != SEG_FRAMES - 1 or not segmented[0]):
+        raise RuntimeError(f"segmentation GOP: not launched {missing}, "
+                           f"types {encode.frame_types}, {len(inter)} frames "
+                           f"on the inter wavefront, segmented {segmented}")
+    checked, inter_sbs = rederive_sbs(inter)
+    if not recon_check.filters_match(inter[-1], inter[-1]._chk_prefilter,
+                                     recon[-1]):
+        raise RuntimeError("segmentation GOP: the numpy filter chain over "
+                           "the last P frame differs from its output")
+    digests = [recon_digest(r) for r in recon]
+    save_stream("seg", data, {"recon_sha256": digests}, size=SEG_SIZE)
+    print(json.dumps({"seg_gop": {
+        "frames": SEG_FRAMES, "size": "%dx%d" % SEG_SIZE, "seconds": secs,
+        "frame_types": encode.frame_types, "segmented": segmented,
+        "dav1d": check_decode(data, recon), "sbs_rederived": checked,
+        "sbs_rederived_with_inter_blocks": inter_sbs,
+        "launches": {k: counts[k] for k in SEG_LAUNCHED},
+        "bytes": sum(map(len, data)), "recon_sha256": digests,
+        "card": card}}))
+    return []
+
+
 def main() -> int:
     try:
         import torch
@@ -3464,9 +3634,19 @@ def main() -> int:
                                   "per_kernel": secs,
                                   "native_gxx": t_native}}))
     for name in kernels.KERNELS:
+        # nvcc's ptxas lines of each entry function: its name, registers,
+        # stack frame and spills
         info = [ln.strip() for ln in kernels.BUILD_LOGS.get(name, "").splitlines()
-                if "registers" in ln or "spill" in ln]
+                if "registers" in ln or "spill" in ln
+                or "Function properties" in ln]
         print(json.dumps({"ptxas": name, "info": info}))
+        # K1 and K3 keep every array in registers: no stack, no spills
+        if name in ("intra_pred", "inv_txfm") and any(
+                "stack frame" in ln and not ln.startswith(
+                    "0 bytes stack frame, 0 bytes spill stores, 0 bytes "
+                    "spill loads") for ln in info):
+            raise RuntimeError(f"{name}: ptxas reports a stack frame or "
+                               "spills")
     for name in kernels.KERNELS:
         kernels.lib(name)
 
@@ -3498,6 +3678,7 @@ def main() -> int:
     print(json.dumps({"bound_ms_per_frame": {
         k: v / NFRAMES for k, v in cap.bounds.items()}, "card": card}))
     results = check_kernels(cap.calls, counts, NFRAMES)
+    check_modes(cap.calls, "keyframes", card, timed=True)
     fwd_sums_only(cap.calls, card)
     t3 = time.perf_counter()
     summary = check_output(data, recon, fes, FILTER_FRAMES)
@@ -3550,7 +3731,8 @@ def main() -> int:
             ("12_speed3", lambda: speed3(card)),
             ("13_tiles", lambda: tiles(card)),
             ("14_multidevice", lambda: multidevice(card, *tiles.first)),
-            ("15_analysis", lambda: analysis(card, key_fps))):
+            ("15_analysis", lambda: analysis(card, key_fps)),
+            ("16_segmentation", lambda: seg_gop(card))):
         t_ph = time.perf_counter()
         results += phase()
         walls[name] = time.perf_counter() - t_ph

@@ -59,9 +59,9 @@ _vp = ctypes.c_void_p
 _ci = ctypes.c_int
 _cf = ctypes.c_float
 ARGTYPES = {
-    "intra_pred": [_vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _vp, _vp, _vp, _vp],
+    "intra_pred": [ctypes.POINTER(_vp), ctypes.POINTER(_ci), _vp],
     "fwd_txq": [ctypes.POINTER(_vp), ctypes.POINTER(_ci), _cf, _cf, _vp],
-    "inv_txfm": [_vp, _vp, _ci, _ci, _ci, _vp, _ci, _ci, _ci, _ci, _vp],
+    "inv_txfm": [ctypes.POINTER(_vp), ctypes.POINTER(_ci), _vp],
     "deblock_pass": [_vp, _vp, _ci, _ci, _ci, _ci, _vp, _vp, _vp, _ci, _ci,
                      _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _vp],
     "cdef_dir": [_vp, _ci, _ci, _ci, _ci, _vp, _vp, _vp],

@@ -86,8 +86,8 @@ def predict_all(y: torch.Tensor, n: int):
     blocks, above, left = source_edges(y, n)
     by, bx = blocks.shape[:2]
     on = torch.ones((above.shape[0],), dtype=torch.bool, device=y.device)
-    preds = ij.intra_pred(above, left, on, on, n, True)
-    preds = preds[:, list(_CHANNELS)].reshape(by, bx, len(_CHANNELS), n, n)
+    preds = ij.intra_pred(above, left, on, on, n, True, channels=_CHANNELS)
+    preds = preds.reshape(by, bx, len(_CHANNELS), n, n)
     return blocks, preds.permute(2, 0, 1, 3, 4)
 
 

@@ -323,8 +323,6 @@ class WavefrontPass(torch.nn.Module):
         self.register_buffer("base_mask", torch.as_tensor(allow, device=dev))
         self.register_buffer("not_z1", torch.as_tensor(~z1, device=dev))
         self.register_buffer("is_dir", torch.as_tensor(_IS_DIR, device=dev))
-        self.register_buffer("angs56", torch.as_tensor(ij.DIR_ANGLES,
-                                                       device=dev))
         i32 = dict(dtype=torch.int32, device=dev)
         self.tt_sym = torch.as_tensor([s for s, _, _ in LUMA_TT], **i32)
         self.tt_types = torch.as_tensor([t for _, t, _ in LUMA_TT], **i32)
@@ -393,12 +391,12 @@ class WavefrontPass(torch.nn.Module):
         dev = ha.device
         zero = torch.zeros((Bn,), dtype=torch.int32, device=dev)
         ncand = 7 if self.uv_search else 1
-        preds = []
-        for ctx in (ctxU, ctxV):
-            ab, lf = self.edges_local(ctx, ly2, lx2, n2, n2, ha, hl, zero,
-                                      zero)
-            preds.append(ij.intra_pred(ab, lf, ha, hl, n2, False, bd)[:, :ncand])
-        pred = torch.stack(preds, 1)  # (B, 2, C, n2, n2)
+        abU, lfU = self.edges_local(ctxU, ly2, lx2, n2, n2, ha, hl, zero, zero)
+        abV, lfV = self.edges_local(ctxV, ly2, lx2, n2, n2, ha, hl, zero, zero)
+        # both planes' candidates (NONDIR's first ncand) in one K1
+        # launch: (B, 2, C, n2, n2)
+        pred = ij.intra_pred((abU, abV), (lfU, lfV), ha, hl, n2, False, bd,
+                             channels=ij.NONDIR_CHANNELS[:ncand])
         src = torch.stack([src_u, src_v], 1)
         resid = src[:, :, None] - pred
         q = lambda v: v[:, None, None].expand(Bn, 2, ncand)
@@ -506,20 +504,15 @@ class WavefrontPass(torch.nn.Module):
                                        av4[:, 2], av4[:, 3])
         src = sYt[:, ly : ly + n, lx : lx + n]
         Bn = src.shape[0]
-        preds = ij.intra_pred(above, left, ha, hl, n, True, bd)
-        dirs = preds[:, 1:57].reshape(Bn, 8, 7, n, n)
         if self.fine_dir:
-            # each base direction's best angle delta by SAD (zone-1 deltas
-            # masked) before the RD race
-            sad56 = (dirs - src[:, None, None]).abs().sum((-1, -2))
-            bad56 = (self.angs56[None] < 90) & ~allow_z1[:, None, None]
-            di8 = torch.argmin(torch.where(bad56, 1 << 30, sad56), dim=2)
-            dir_cand = torch.gather(
-                dirs, 2, di8[:, :, None, None, None].expand(Bn, 8, 1, n, n))[:, :, 0]
-        else:
-            di8 = torch.full((Bn, 8), 3, dtype=torch.long, device=src.device)
-            dir_cand = dirs[:, :, 3]
-        stack = torch.cat([preds[:, :1], dir_cand, preds[:, 57:61]], 1)
+            # K1's race: each base direction's best angle delta by SAD
+            # (zone-1 deltas masked) before the RD race, and the 13 modes
+            stack, di8 = ij.intra_pred(above, left, ha, hl, n, True, bd,
+                                       src=src, allow_z1=allow_z1)
+        else:  # the 13 modes at angle delta 0
+            stack = ij.intra_pred(above, left, ha, hl, n, True, bd,
+                                  channels=ij.STACK13_CHANNELS)
+            di8 = None
         # mode selection by tx-domain RD over all 13 candidates
         Fv, FhT = self.mats[n]
         resid_all = src[:, None] - stack
@@ -532,9 +525,12 @@ class WavefrontPass(torch.nn.Module):
         cost_all = torch.where(mask, cost_all, float(1 << 30))
         mode = torch.argmin(cost_all, dim=1)
         pred = self._pick(stack, mode)
-        dmi = torch.clamp(mode - 1, 0, 7)
-        delta = self._pick(di8, dmi) - 3
-        delta = torch.where(self.is_dir[mode], delta, torch.zeros_like(delta))
+        if di8 is None:
+            delta = torch.zeros_like(mode)
+        else:
+            delta = self._pick(di8, torch.clamp(mode - 1, 0, 7)) - 3
+            delta = torch.where(self.is_dir[mode], delta,
+                                torch.zeros_like(delta))
 
         resid = src - pred
         if self.tx_search and n <= 16:
@@ -550,14 +546,14 @@ class WavefrontPass(torch.nn.Module):
             costs = self._sse(r5, inv5) + lam[:, None] * rate5
             sel = torch.argmin(costs, dim=1)
             tt_sym = self.tt_sym[sel]
-            lv, inv, rate_y = (self._pick(lv5, sel), self._pick(inv5, sel),
-                               self._pick(rate5, sel))
+            lv, rate_y = self._pick(lv5, sel), self._pick(rate5, sel)
+            recon_y = torch.clamp(pred + self._pick(inv5, sel), 0,
+                                  self.maxval)
         else:
             lv, dq, _t, rate_y = tt.fwd_txq(resid, Fv, FhT, qdc, qac, shift,
                                             bit_depth=bd)
-            inv = tt.inv_txfm(dq, tn.DCT_DCT, bd)
+            recon_y = tt.inv_txfm(dq, tn.DCT_DCT, bd, pred=pred)
             tt_sym = torch.ones_like(mode)
-        recon_y = torch.clamp(pred + inv, 0, self.maxval)
 
         n2 = n >> 1
         ly2, lx2 = ly >> 1, lx >> 1
@@ -632,21 +628,21 @@ class WavefrontPass(torch.nn.Module):
         mode = self.mode64[ci]
         pred = self._pick(stack, ci)
         lv = self._pick(lv_all, ci)
-        dq64 = torch.zeros((Bn, 64, 64), dtype=torch.int32, device=ha.device)
-        dq64[:, :32, :32] = self._pick(dq_all, ci)
-        recon_y = torch.clamp(pred + tt.inv_txfm(dq64, tn.DCT_DCT, bd), 0,
-                              self.maxval)
-        rec_c, lv_c, rate_c = [], [], []
+        # TX_64X64 of the coded 32x32 corner, reconstructed in K3
+        recon_y = tt.inv_txfm(self._pick(dq_all, ci), tn.DCT_DCT, bd,
+                              pred=pred, tx64=True)
         Fvc, FhTc = self.mats[32]
-        for ctx, sC in ((ctxU, sUt), (ctxV, sVt)):
-            ab, lf = self.edges_local(ctx, 0, 0, 32, 32, ha, hl, zero, zero)
-            pc = ij.intra_pred(ab, lf, ha, hl, 32, False, bd)[:, 0]
-            l_, d_, _t, r_ = tt.fwd_txq(sC - pc, Fvc, FhTc, qdc, qac, 1,
-                                        bit_depth=bd)  # TX_32X32 tx_scale
-            rec_c.append(torch.clamp(pc + tt.inv_txfm(d_, tn.DCT_DCT, bd), 0,
-                                     self.maxval))
-            lv_c.append(l_)
-            rate_c.append(r_)
+        abU, lfU = self.edges_local(ctxU, 0, 0, 32, 32, ha, hl, zero, zero)
+        abV, lfV = self.edges_local(ctxV, 0, 0, 32, 32, ha, hl, zero, zero)
+        # both planes' DC in one K1 launch, then one K2 and one K3
+        pc = ij.intra_pred((abU, abV), (lfU, lfV), ha, hl, 32, False, bd,
+                           channels=(0,))[:, :, 0]  # (B, 2, 32, 32)
+        q2 = lambda v: v[:, None].expand(Bn, 2)
+        l_, d_, _t, r_ = tt.fwd_txq(torch.stack([sUt, sVt], 1) - pc, Fvc,
+                                    FhTc, q2(qdc), q2(qac), 1,
+                                    bit_depth=bd)  # TX_32X32 tx_scale
+        rec_c = tt.inv_txfm(d_, tn.DCT_DCT, bd, pred=pc).unbind(1)
+        lv_c, rate_c = l_.unbind(1), r_.unbind(1)
         skip = (lv.abs().sum((-1, -2)) + lv_c[0].abs().sum((-1, -2))
                 + lv_c[1].abs().sum((-1, -2))) == 0
         dist = self._sse(recon_y, src)
@@ -806,12 +802,8 @@ class WavefrontPass(torch.nn.Module):
         mvr, mvc = mv[:, 0].contiguous(), mv[:, 1].contiguous()
         pred, lv, dq, rate = (self._pick(pred_all, ci), self._pick(lv_all, ci),
                               self._pick(dq_all, ci), self._pick(rate_all, ci))
-        if n == 64:
-            dq64 = torch.zeros((N, 64, 64), dtype=torch.int32, device=dev)
-            dq64[:, :32, :32] = dq
-            dq = dq64
-        recon = torch.clamp(pred + tt.inv_txfm(dq, tn.DCT_DCT, bd), 0,
-                            self.maxval)
+        # at n = 64 the coded 32x32 corner of TX_64X64
+        recon = tt.inv_txfm(dq, tn.DCT_DCT, bd, pred=pred, tx64=n == 64)
         pred_c = torch.stack([mc.mc_block_batch(
             refs[p], mc.MC_MARGIN, px >> 1, py >> 1, mvr, mvc, n2, n2, 1, 1, bd)
             for p in (1, 2)], 1)
@@ -822,8 +814,7 @@ class WavefrontPass(torch.nn.Module):
         lv_c, dq_c, _t, rate_c = tt.fwd_txq(
             src_c - pred_c, FvC, FhTC, ex2(qdc), ex2(qac), shift_c,
             bit_depth=bd, thr=ex2(thr1))
-        recon_c = torch.clamp(pred_c + tt.inv_txfm(dq_c, tn.DCT_DCT, bd), 0,
-                              self.maxval)
+        recon_c = tt.inv_txfm(dq_c, tn.DCT_DCT, bd, pred=pred_c)
         # skip-vs-code RD over all three planes (host _block analog)
         sse = self._sse_exact
         dist_code = (sse(recon, src_b) + sse(recon_c[:, 0], src_c[:, 0])

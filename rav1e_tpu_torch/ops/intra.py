@@ -8,18 +8,26 @@ build_edges_batch, K14) and of the wavefront's _nondir_preds.  NORMATIVE (spec 7
 the wavefront encoder reconstructs with these predictions.  Edge filtering
 and upsampling are off in this encoder's streams.
 
-`intra_pred(above, left, ha, hl, n, full)` evaluates a whole channel set
-for a batch of lanes: FULL = DC, the 56 directional variants (8 modes x 7
-angle deltas, enum order) and SMOOTH/SMOOTH_V/SMOOTH_H/PAETH (61
-channels); NONDIR = DC, V, H, SMOOTH, SMOOTH_V, SMOOTH_H, PAETH (7).  On a
-CUDA tensor it launches the hand-written kernel csrc/intra_pred.cu; on a
-CPU tensor it runs the plain version below.  Likewise dr_predict_batch
-(csrc/dr_predict.cu: one lane's prediction at its own angle, any w x h)
-and build_edges_batch (csrc/build_edges.cu: the edge vectors of B blocks
-from a reconstructed plane).
+`intra_pred(above, left, ha, hl, n, full)` evaluates a channel list for
+a batch of lanes, each channel named by its index in the FULL set: DC,
+the 56 directional variants (8 modes x 7 angle deltas, enum order) and
+SMOOTH/SMOOTH_V/SMOOTH_H/PAETH (61 channels); NONDIR = DC, V, H, SMOOTH,
+SMOOTH_V, SMOOTH_H, PAETH (7) is the list FULL[NONDIR_CHANNELS], and
+`channels=` names any other.  Given two planes' edges (U and V) it
+predicts both in one call.  Given a source block (`src=`, with
+`allow_z1=`) it is the key pass's fine-direction race instead: each base
+direction's angle delta picked by SAD, the 13-candidate stack and the
+picks returned.  On a CUDA tensor it launches the hand-written kernel
+csrc/intra_pred.cu; on a CPU tensor it runs the plain version below.
+Likewise dr_predict_batch (csrc/dr_predict.cu: one lane's prediction at
+its own angle, any w x h) and build_edges_batch (csrc/build_edges.cu:
+the edge vectors of B blocks from a reconstructed plane).
 """
 
 from __future__ import annotations
+
+import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -36,7 +44,14 @@ DIR_MODE_IDS = (V, H, D45, D135, D113, D157, D203, D67)
 DIR_ANGLES = np.array([[ip.MODE_ANGLE[m] + 3 * d for d in range(-3, 4)]
                        for m in DIR_MODE_IDS], np.int32)  # (8, 7)
 N_FULL = 61
-N_NONDIR = 7
+FULL_CHANNELS = tuple(range(N_FULL))
+# NONDIR in FULL's enumeration: DC, V and H at angle delta 0, SMOOTH,
+# SMOOTH_V, SMOOTH_H, PAETH
+NONDIR_CHANNELS = (0, 4, 11, 57, 58, 59, 60)
+# the 13 modes at angle delta 0 in mode order: DC, the 8 base directions,
+# SMOOTH, SMOOTH_V, SMOOTH_H, PAETH (the race's stack without its pick)
+STACK13_CHANNELS = (0,) + tuple(1 + 7 * m + 3 for m in range(8)) + (
+    57, 58, 59, 60)
 
 
 def dir_taps(n: int):
@@ -156,16 +171,60 @@ def predict_dirs(above, left, n: int):
     return ((g0 * w0 + g1 * w1 + 16) >> 5).reshape(B, 8, 7, n, n)
 
 
-def intra_pred_plain(above, left, ha, hl, n: int, full: bool, bd: int = 8):
+def _channels(full: bool, channels) -> tuple:
+    if channels is None:
+        return FULL_CHANNELS if full else NONDIR_CHANNELS
+    return channels if type(channels) is tuple else tuple(
+        int(c) for c in channels)
+
+
+def _race_plain(above, left, ha, hl, n: int, src, allow_z1, bd: int):
+    """The fine-direction race (rav1e_tpu/models/wavefront.py:614-631):
+    the 56 directional variants' SADs against src, each base direction's
+    first least among its allowed deltas (zone-1 deltas barred where
+    allow_z1 is false), and the 13-candidate stack."""
     B = above.shape[0]
-    dc = dc_predict(above, left, n, ha, hl, bd)[:, None]
-    nd = nondir_preds(above, left, n)
-    if full:
-        mid = predict_dirs(above, left, n).reshape(B, 56, n, n)
-    else:
-        mid = torch.stack([above[:, None, 1 : 1 + n].expand(B, n, n),
-                           left[:, 1 : 1 + n, None].expand(B, n, n)], dim=1)
-    return torch.cat([dc, mid, nd], dim=1).to(torch.int32)
+    dirs = predict_dirs(above, left, n)  # (B, 8, 7, n, n)
+    sad56 = (dirs - src[:, None, None]).abs().sum((-1, -2))
+    angs = torch.as_tensor(DIR_ANGLES, device=above.device)
+    bad56 = (angs[None] < 90) & ~allow_z1.to(torch.bool)[:, None, None]
+    di8 = torch.argmin(torch.where(bad56, 1 << 30, sad56), dim=2)
+    pick = torch.gather(dirs, 2, di8[:, :, None, None, None].expand(
+        B, 8, 1, n, n))[:, :, 0]
+    stack = torch.cat([dc_predict(above, left, n, ha, hl, bd)[:, None], pick,
+                       nondir_preds(above, left, n)], 1)
+    return stack.to(torch.int32), di8.to(torch.int32)
+
+
+def intra_pred_plain(above, left, ha, hl, n: int, full: bool = True,
+                     bd: int = 8, channels=None, src=None, allow_z1=None):
+    """Plain version of K1 (intra_pred's arguments and results)."""
+    if src is not None:
+        return _race_plain(above, left, ha.to(torch.bool), hl.to(torch.bool),
+                           n, src, allow_z1, bd)
+    if isinstance(above, (tuple, list)):
+        return torch.stack([intra_pred_plain(a, lf, ha, hl, n, full, bd,
+                                             channels)
+                            for a, lf in zip(above, left)], 1)
+    chans = _channels(full, channels)
+    B = above.shape[0]
+    ha, hl = ha.to(torch.bool), hl.to(torch.bool)
+    nd = nondir_preds(above, left, n) if max(chans) >= 57 else None
+    dirs = (predict_dirs(above, left, n).reshape(B, 56, n, n)
+            if any(0 < c < 57 and c not in (4, 11) for c in chans) else None)
+    out = []
+    for c in chans:
+        if c == 0:
+            out.append(dc_predict(above, left, n, ha, hl, bd))
+        elif c < 57 and dirs is not None:
+            out.append(dirs[:, c - 1])
+        elif c == 4:  # V at delta 0 repeats the above edge
+            out.append(above[:, None, 1 : 1 + n].expand(B, n, n))
+        elif c == 11:  # H at delta 0 the left one
+            out.append(left[:, 1 : 1 + n, None].expand(B, n, n))
+        else:
+            out.append(nd[:, c - 57])
+    return torch.stack(out, 1).to(torch.int32)
 
 
 _DEV_TABLES: dict = {}
@@ -181,28 +240,98 @@ def _dev_tables(device):
     return t
 
 
-def intra_pred(above: torch.Tensor, left: torch.Tensor, ha: torch.Tensor,
-               hl: torch.Tensor, n: int, full: bool,
-               bd: int = 8) -> torch.Tensor:
-    """Predictions of one channel set for B lanes of n x n blocks.
+# a K1 launch's pointer and integer arguments, read by the C entry before
+# it returns: one buffer of each serves a thread's launches
+_K1_ARGS = threading.local()
+_CHECKED: set = set()  # the channel lists checked once
+
+
+def _flag(v: torch.Tensor) -> torch.Tensor:
+    """A per-lane flag as K1 reads it: bool (one byte), any stride."""
+    return v if v.dtype in (torch.bool, torch.uint8) else v != 0
+
+
+def _edges(v: torch.Tensor, B: int, n: int) -> torch.Tensor:
+    if v.dtype != torch.int32 or not v.is_contiguous():
+        v = v.to(torch.int32).contiguous()
+    if v.shape != (B, 2 * n + 1):
+        raise ValueError(f"intra_pred: edges {tuple(v.shape)}, expected "
+                         f"({B}, {2 * n + 1})")
+    return v
+
+
+def intra_pred(above, left, ha: torch.Tensor, hl: torch.Tensor, n: int,
+               full: bool = True, bd: int = 8, channels=None, src=None,
+               allow_z1=None):
+    """Intra predictions of B lanes of n x n blocks (K1).
 
     above/left: (B, 2n+1) int32 edges (index 0 = top-left, as
-    build_edges_batch makes them); ha/hl: (B,) bool availability.
-    Returns (B, 61 | 7, n, n) int32 (K1)."""
-    if above.device.type == "cpu":
-        return intra_pred_plain(above, left, ha, hl, n, full, bd)
-    B = above.shape[0]
-    nch = N_FULL if full else N_NONDIR
-    a = above.to(torch.int32).contiguous()
-    lf = left.to(torch.int32).contiguous()
-    hai = ha.to(torch.int32).contiguous()
-    hli = hl.to(torch.int32).contiguous()
-    out = torch.empty((B, nch, n, n), dtype=torch.int32, device=a.device)
-    dr, smw = _dev_tables(a.device)
-    kernels.launch("intra_pred", a, a.data_ptr(), lf.data_ptr(),
-                   hai.data_ptr(), hli.data_ptr(), B, n, 1 if full else 0, bd,
-                   dr.data_ptr(), smw[n].data_ptr(), out.data_ptr())
-    return out
+    build_edges_batch makes them), or a tuple of two such (U and V: one
+    call predicts both planes); ha/hl: (B,) bool availability.  List mode
+    (src None): the channels `channels` (indices into FULL; by default
+    FULL or NONDIR by `full`), (B, nch, n, n) int32, or (B, 2, nch, n, n)
+    for two planes.  Race mode (src: the lanes' (B, n, n) int32 source
+    blocks, any strides with unit columns; allow_z1: (B,) bool): returns
+    (stack (B, 13, n, n): DC, each base direction at its picked delta,
+    SMOOTH, SMOOTH_V, SMOOTH_H, PAETH; di8 (B, 8) int32, the picked delta
+    indices), the fine-direction pick of rav1e_tpu/models/wavefront.py
+    :614-631.  On the card: one launch, an allocation an output, the
+    flags and the source read in place."""
+    planes = isinstance(above, (tuple, list))
+    first = above[0] if planes else above
+    if first.device.type == "cpu":
+        return intra_pred_plain(above, left, ha, hl, n, full, bd, channels,
+                                src, allow_z1)
+    B = first.shape[0]
+    ab = list(above) if planes else [above]
+    lf = list(left) if planes else [left]
+    if n not in (4, 8, 16, 32, 64) or len(ab) not in (1, 2) or \
+            len(lf) != len(ab):
+        raise ValueError("intra_pred: n in 4..64 and one or two planes")
+    ab = [_edges(v, B, n) for v in ab]
+    lf = [_edges(v, B, n) for v in lf]
+    ha, hl = _flag(ha), _flag(hl)
+    dev = first.device
+    dr, smw = _dev_tables(dev)
+    s_ptr = az_ptr = di8 = None
+    src_st = (0, 0)
+    az_st = 0
+    if src is not None:
+        if planes or n > 32:
+            raise ValueError("intra_pred: the race takes one plane, n <= 32")
+        if src.dtype != torch.int32 or src.shape != (B, n, n) or \
+                src.stride(2) != 1:
+            src = src.to(torch.int32).contiguous()
+        allow_z1 = _flag(allow_z1)
+        out = torch.empty((B, 13, n, n), dtype=torch.int32, device=dev)
+        di8 = torch.empty((B, 8), dtype=torch.int32, device=dev)
+        s_ptr, az_ptr = src.data_ptr(), allow_z1.data_ptr()
+        src_st, az_st = (src.stride(0), src.stride(1)), allow_z1.stride(0)
+        chans = ()
+    else:
+        chans = _channels(full, channels)
+        if chans not in _CHECKED:
+            if not 0 < len(chans) <= 64 or min(chans) < 0 or \
+                    max(chans) >= N_FULL:
+                raise ValueError("intra_pred: 1 to 64 channels of FULL's 61")
+            _CHECKED.add(chans)
+        shape = (B, len(ab), len(chans), n, n) if planes else \
+            (B, len(chans), n, n)
+        out = torch.empty(shape, dtype=torch.int32, device=dev)
+    bufs = getattr(_K1_ARGS, "bufs", None)
+    if bufs is None:
+        bufs = _K1_ARGS.bufs = ((ctypes.c_void_p * 12)(),
+                                (ctypes.c_int * 74)())
+    edges = [ab[0], lf[0]] + ([ab[1], lf[1]] if len(ab) == 2 else [None] * 2)
+    bufs[0][:] = [kernels.ptr(v) for v in edges] + [
+        ha.data_ptr(), hl.data_ptr(), az_ptr, dr.data_ptr(),
+        smw[n].data_ptr(), s_ptr, out.data_ptr(),
+        None if di8 is None else di8.data_ptr()]
+    head = (len(ab), B, n, bd, ha.stride(0), hl.stride(0), az_st) + \
+        src_st + (len(chans),)
+    bufs[1][: 10 + len(chans)] = head + chans
+    kernels.launch("intra_pred", first, *bufs)
+    return out if src is None else (out, di8)
 
 
 # -- K11 cfl ----------------------------------------------------------------------

@@ -312,10 +312,16 @@ def _lim(bit_depth: int) -> int:
     return 1 << (15 if bit_depth == 8 else bit_depth + 7)
 
 
-def inv_txfm_plain(coeffs: torch.Tensor, tx_type: int,
-                   bit_depth: int = 8) -> torch.Tensor:
+def inv_txfm_plain(coeffs: torch.Tensor, tx_type: int, bit_depth: int = 8,
+                   pred=None, tx64: bool = False) -> torch.Tensor:
     """Plain PyTorch inverse transform of one tx type: (..., h, w) int32
-    dequantised coefficients -> (..., h, w) int32 residual."""
+    dequantised coefficients -> (..., h, w) int32 residual; with tx64 the
+    coefficients are the (..., 32, 32) corner of a 64x64 transform (the
+    rest zero); with pred (the output's shape) the reconstruction
+    clamp(pred + residual, 0, 2^bit_depth - 1)."""
+    if tx64:
+        coeffs = torch.nn.functional.pad(coeffs.to(torch.int32),
+                                         (0, 32, 0, 32))
     h, w = coeffs.shape[-2], coeffs.shape[-1]
     vert, horz, flip_v, flip_h = tn._TX1D[tx_type]
     row_shift, col_shift = tn._inv_shifts(w, h)
@@ -333,35 +339,134 @@ def inv_txfm_plain(coeffs: torch.Tensor, tx_type: int,
         x = torch.flip(x, dims=[-2])
     if flip_h:
         x = torch.flip(x, dims=[-1])
+    if pred is not None:
+        x = torch.clamp(pred + x, 0, (1 << bit_depth) - 1)
     return x.contiguous()
 
 
-def inv_txfm(coeffs: torch.Tensor, tx_type, bit_depth: int = 8) -> torch.Tensor:
-    """Normative inverse transform.  coeffs: (..., h, w) int32; tx_type: one
-    int for the whole batch, or an int32 tensor of the batch shape with one
-    type per transform.  Bit-exact with transforms_jax.inv_txfm (K3)."""
-    h, w = coeffs.shape[-2], coeffs.shape[-1]
-    per_block = torch.is_tensor(tx_type)
-    if coeffs.device.type == "cpu":
-        if not per_block:
-            return inv_txfm_plain(coeffs, int(tx_type), bit_depth)
-        out = torch.empty_like(coeffs, dtype=torch.int32)
-        types = tx_type.reshape(coeffs.shape[:-2])
-        for t in torch.unique(types).tolist():
-            sel = types == t
-            out[sel] = inv_txfm_plain(coeffs[sel], t, bit_depth)
-        return out
-    x = coeffs.to(torch.int32).contiguous()
-    nb = x.numel() // (h * w)
-    out = torch.empty_like(x)
-    types = None
-    if per_block:
-        types = tx_type.to(device=x.device, dtype=torch.int32).reshape(nb).contiguous()
-    row_shift, col_shift = tn._inv_shifts(w, h)
-    kernels.launch("inv_txfm", x, x.data_ptr(), out.data_ptr(), nb, w, h,
-                   kernels.ptr(types), 0 if per_block else int(tx_type),
-                   row_shift, col_shift, _lim(bit_depth))
+def inv_txfm_types_plain(coeffs: torch.Tensor, tx_type, bit_depth: int = 8,
+                         pred=None, tx64: bool = False) -> torch.Tensor:
+    """inv_txfm's plain route: inv_txfm_plain once per tx type present
+    where tx_type is a tensor of per-block types."""
+    if not torch.is_tensor(tx_type):
+        return inv_txfm_plain(coeffs, int(tx_type), bit_depth, pred, tx64)
+    batch = coeffs.shape[:-2]
+    hw = (64, 64) if tx64 else tuple(coeffs.shape[-2:])
+    out = torch.empty(batch + hw, dtype=torch.int32, device=coeffs.device)
+    types = tx_type.to(coeffs.device).expand(batch)
+    for t in torch.unique(types).tolist():
+        sel = types == t
+        out[sel] = inv_txfm_plain(coeffs[sel], t, bit_depth,
+                                  None if pred is None
+                                  else pred.expand(batch + hw)[sel], tx64)
     return out
+
+
+_INV_SIZES = {(4, 4), (8, 8), (16, 16), (32, 32), (64, 64), (4, 8), (8, 4),
+              (8, 16), (16, 8), (16, 32), (32, 16), (32, 64), (64, 32),
+              (4, 16), (16, 4), (8, 32), (32, 8), (16, 64), (64, 16)}
+# a K3 launch's pointer and integer arguments, read by the C entry before
+# it returns: one buffer of each serves a thread's launches
+_INV_ARGS = threading.local()
+
+
+def inv_txfm(coeffs: torch.Tensor, tx_type, bit_depth: int = 8, pred=None,
+             tx64: bool = False) -> torch.Tensor:
+    """Normative inverse transform (K3).  coeffs: (..., h, w) int32;
+    tx_type: one int for the whole batch, or an int32 tensor broadcast to
+    the batch shape with one type per transform.  tx64: coeffs are the
+    (..., 32, 32) coded corner of 64x64 transforms (the rest zero), and
+    the output is (..., 64, 64).  pred: where given (the output's shape),
+    the output is the reconstruction clamp(pred + residual, 0,
+    2^bit_depth - 1) instead of the residual.  Bit-exact with
+    transforms_jax.inv_txfm (plus the clamp).
+
+    On the card one launch: the coefficients and per-block types are read
+    in place where their layout allows (block_layout: a contiguous batch,
+    broadcast types), else copied."""
+    h, w = coeffs.shape[-2], coeffs.shape[-1]
+    if tx64 and (h, w) != (32, 32):
+        raise ValueError("inv_txfm: tx64 takes (..., 32, 32) coefficients")
+    if coeffs.device.type == "cpu":
+        return inv_txfm_types_plain(coeffs, tx_type, bit_depth, pred, tx64)
+    key = (_signature(coeffs), _signature(tx_type), _signature(pred), tx64,
+           bit_depth)
+    plan = _INV_PLANS.get(key)
+    if plan is None:
+        plan, coeffs, tx_type, pred = _inv_plan(coeffs, tx_type, bit_depth,
+                                                pred, tx64, key)
+    ptrs = (coeffs.data_ptr(), kernels.ptr(tx_type if torch.is_tensor(tx_type)
+                                           else None), kernels.ptr(pred))
+    if ptrs[0] % 16 or (pred is not None and ptrs[2] % 16):
+        # a view whose first element misses the 16-byte grid: re-plan,
+        # copying it (and keep no plan for such a call)
+        plan, coeffs, tx_type, pred = _inv_plan(coeffs.clone(), tx_type,
+                                                bit_depth, None if pred is None
+                                                else pred.clone(), tx64, None)
+        ptrs = (coeffs.data_ptr(), ptrs[1], kernels.ptr(pred))
+    out_shape, ints = plan
+    out = torch.empty(out_shape, dtype=torch.int32, device=coeffs.device)
+    bufs = getattr(_INV_ARGS, "bufs", None)
+    if bufs is None:
+        bufs = _INV_ARGS.bufs = ((ctypes.c_void_p * 4)(),
+                                 (ctypes.c_int * 15)())
+    bufs[0][:] = ptrs + (out.data_ptr(),)
+    bufs[1][:] = ints if torch.is_tensor(tx_type) else (
+        ints[:10] + (int(tx_type),) + ints[11:])
+    kernels.launch("inv_txfm", coeffs, *bufs)
+    return out
+
+
+# each call shape's launch plan (the output shape and the launch's
+# integers) by its inputs' shapes, strides, types and devices; a bounded
+# cache of the calls whose inputs are read in place
+_INV_PLANS: dict = {}
+
+
+def _inv_plan(coeffs, tx_type, bit_depth: int, pred, tx64: bool, key):
+    """(plan, coeffs, tx_type, pred) of a K3 call: the inputs as the kernel
+    reads them (in place where block_layout allows, else copied) and the
+    plan (output shape, the 15 launch integers with tx0 0 for per-block
+    types), kept under `key` when nothing was copied."""
+    h, w = coeffs.shape[-2], coeffs.shape[-1]
+    H, W = (64, 64) if tx64 else (h, w)
+    if (W, H) not in _INV_SIZES:
+        raise ValueError(f"inv_txfm: no kernel for {w}x{h}")
+    batch = coeffs.shape[:-2]
+    didx = coeffs.get_device()
+    copied = False
+    x, lay = (_per_block(coeffs, batch, torch.int32, didx, h) if h == w
+              else (coeffs, None))
+    if lay is None or lay[2] % 4 or x is not coeffs:
+        x = coeffs.to(torch.int32).contiguous()
+        lay = (1, max(x.numel() // (h * w), 1), h * w)
+        copied = x is not coeffs
+    nb = 1
+    for d in batch:
+        nb *= d
+    out_shape = batch + (H, W)
+    tl, tx0 = (1, 1, 0), 0
+    if torch.is_tensor(tx_type):
+        t, tl = _per_block(tx_type, batch, torch.int32, didx)
+        copied |= t is not tx_type
+        tx_type = t
+    else:
+        tx0 = int(tx_type)
+    if pred is not None and (pred.shape != out_shape
+                             or pred.dtype != torch.int32
+                             or not pred.is_contiguous()
+                             or pred.get_device() != didx):
+        pred = pred.to(device=x.device, dtype=torch.int32).expand(
+            out_shape).contiguous()
+        copied = True
+    row_shift, col_shift = tn._inv_shifts(W, H)
+    plan = (out_shape, (nb, W, H, int(tx64)) + tuple(lay) + tuple(tl) + (
+        tx0, row_shift, col_shift, _lim(bit_depth), (1 << bit_depth) - 1))
+    if key is not None and not copied:
+        if len(_INV_PLANS) >= 4096:
+            _INV_PLANS.clear()
+        _INV_PLANS[key] = plan
+    return plan, x, tx_type, pred
 
 
 def fwd_mats(tx_type: int, w: int, h: int):

@@ -3,7 +3,9 @@
 These tests need an NVIDIA GPU and nvcc: each builds its kernel from
 rav1e_tpu_torch/csrc, launches it on CUDA tensors and holds the result
 against the plain version on the same inputs (identical for intra_pred,
-inv_txfm, deblock, cdef_dir, cdef_filter, wiener_solve, wiener_lr, also
+also its channel lists, two planes a call and the race, inv_txfm, also
+at every size class, fused with the prediction and over 64x64's 32x32
+corner, deblock, cdef_dir, cdef_filter, wiener_solve, wiener_lr, also
 in frame mode, mc_pred, me_fullpel, also through frame_me_map, and cfl,
 the four of the leaves also at the speed-3 pass's 8x8 and 4x4 shapes,
 and above 8 bits cdef_dir, cdef_filter, wiener_lr in frame mode and
@@ -59,6 +61,109 @@ def test_intra_pred_kernel(n, full):
     assert kernels.COUNTS["intra_pred"] == before + 1
     ref = intra.intra_pred_plain(a, l_, ha, hl, n, full)
     assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("n", [4, 8, 16, 32, 64])
+def test_intra_pred_channel_lists_and_planes(n):
+    """K1's list mode: any channel list equals the full set's slice; two
+    planes' edges (U and V) in one launch equal two calls."""
+    from rav1e_tpu_torch import kernels
+    from rav1e_tpu_torch.ops import intra
+
+    dev = _card()
+    rng = np.random.default_rng(SEED + 40 + n)
+    a, l_, ha, hl = _edges(rng, 45, n, dev)
+    a2, l2, _, _ = _edges(rng, 45, n, dev)
+    full = intra.intra_pred_plain(a, l_, ha, hl, n, True)
+    for chans in (intra.STACK13_CHANNELS, (0, 4, 11, 57, 58, 59, 60, 25,
+                                           32, 39), (0,), (60, 1, 56, 0)):
+        got = intra.intra_pred(a, l_, ha, hl, n, True, channels=chans)
+        assert torch.equal(got, full[:, list(chans)]), chans
+    before = kernels.COUNTS["intra_pred"]
+    got = intra.intra_pred((a, a2), (l_, l2), ha, hl, n, False)
+    assert kernels.COUNTS["intra_pred"] == before + 1
+    assert torch.equal(got, intra.intra_pred_plain((a, a2), (l_, l2), ha, hl,
+                                                   n, False))
+
+
+@pytest.mark.parametrize("n,flat", [(4, False), (8, False), (16, False),
+                                    (32, False), (16, True)])
+def test_intra_pred_race_kernel(n, flat):
+    """K1's race mode on a strided source view: stack and picks identical
+    to the plain version (flat edges and source: every SAD ties)."""
+    from rav1e_tpu_torch import kernels
+    from rav1e_tpu_torch.ops import intra
+
+    dev = _card()
+    rng = np.random.default_rng(SEED + 50 + n)
+    a, l_, ha, hl = _edges(rng, 45, n, dev)
+    tile = torch.as_tensor(rng.integers(0, 256, (45, 64, 64)),
+                           dtype=torch.int32, device=dev)
+    if flat:
+        a[:] = 128
+        l_[:] = 128
+        tile[:] = 128
+    src = tile[:, 32 : 32 + n, 16 : 16 + n]
+    allow = torch.as_tensor(rng.random(45) < 0.5, device=dev)
+    before = kernels.COUNTS["intra_pred"]
+    got = intra.intra_pred(a, l_, ha, hl, n, True, src=src, allow_z1=allow)
+    assert kernels.COUNTS["intra_pred"] == before + 1
+    ref = intra.intra_pred_plain(a, l_, ha, hl, n, True, src=src,
+                                 allow_z1=allow)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("w,h", [(4, 4), (8, 8), (16, 16), (32, 32),
+                                 (64, 64), (8, 16), (16, 8), (4, 16),
+                                 (32, 64), (64, 16)])
+def test_inv_txfm_sizes_and_pred(w, h):
+    """K3 at every size class with every type it allows, residual and
+    fused reconstruction (pred=), at 8 and 10 bits."""
+    from rav1e_tpu_torch.ops import transforms as tt
+    from rav1e_tpu_torch.ops import transforms_np as tn
+
+    dev = _card()
+    rng = np.random.default_rng(SEED + 60 + w + 3 * h)
+    types = [t for t in range(16) if all(
+        k == "dct" or (k == "adst" and m <= 16) or (k == "id" and m <= 32)
+        for k, m in zip(tn._TX1D[t][:2], (h, w)))]
+    for t in types:
+        x = rng.integers(-(1 << 12), 1 << 12, (70, h, w)).astype(np.int32)
+        x[:, 32:] = 0
+        x[:, :, 32:] = 0
+        xt = torch.as_tensor(x, device=dev)
+        for bd in (8, 10):
+            pred = torch.as_tensor(rng.integers(0, 1 << bd, (70, h, w)),
+                                   dtype=torch.int32, device=dev)
+            assert torch.equal(tt.inv_txfm(xt, t, bd),
+                               tt.inv_txfm_plain(xt, t, bd)), (t, bd)
+            assert torch.equal(tt.inv_txfm(xt, t, bd, pred=pred),
+                               tt.inv_txfm_plain(xt, t, bd, pred=pred))
+
+
+def test_inv_txfm_tx64_and_broadcast_types():
+    """K3's 64x64 transform of a 32x32 corner (residual and fused), and
+    types broadcast over the lanes read in place, with pred."""
+    from rav1e_tpu_torch.ops import transforms as tt
+
+    dev = _card()
+    rng = np.random.default_rng(SEED + 70)
+    x = torch.as_tensor(rng.integers(-(1 << 13), 1 << 13, (40, 32, 32)),
+                        dtype=torch.int32, device=dev)
+    pred = torch.as_tensor(rng.integers(0, 256, (40, 64, 64)),
+                           dtype=torch.int32, device=dev)
+    assert torch.equal(tt.inv_txfm(x, 0, tx64=True),
+                       tt.inv_txfm_plain(x, 0, tx64=True))
+    assert torch.equal(tt.inv_txfm(x, 0, pred=pred, tx64=True),
+                       tt.inv_txfm_plain(x, 0, pred=pred, tx64=True))
+    c = torch.as_tensor(rng.integers(-4000, 4000, (45, 5, 16, 16)),
+                        dtype=torch.int32, device=dev)
+    types = torch.as_tensor([0, 3, 1, 2, 9], dtype=torch.int32,
+                            device=dev).expand(45, 5)
+    p5 = torch.as_tensor(rng.integers(0, 256, (45, 5, 16, 16)),
+                         dtype=torch.int32, device=dev)
+    assert torch.equal(tt.inv_txfm(c, types, pred=p5),
+                       tt.inv_txfm_types_plain(c, types, pred=p5))
 
 
 @pytest.mark.parametrize("n", [4, 8, 16, 32, 64])
