@@ -4,19 +4,23 @@
     python3 chip_smoke.py [--profile] [--save-stream DIR]
 
 1. Prints the card's name and power limit (nvidia-smi).
-2. Builds the fourteen CUDA kernels (csrc/*.cu, one nvcc each, in parallel)
+2. Builds the fifteen CUDA kernels (csrc/*.cu, one nvcc each, in parallel)
    and the native entropy library, and prints the build seconds.
 3. Drives the main path once: NFRAMES key frames of 1920x1080 through
    Config -> Context in bench.py's keyframe configuration (speed-6
    defaults, so CDEF and loop restoration on; quantizer 100, low
    latency).  Every kernel's launch count is set to 0 just before and
-   read just after; each of the eight must have launched.
+   read just after; each of the eight must have launched, and K15
+   cdef_decide once a frame (each runs CDEF) while the plain decision
+   never runs.
 4. Holds each kernel against its plain PyTorch version on the card, on the
    inputs the main path gave it (the largest call of each):
    intra_pred, inv_txfm, deblock, cdef_dir, cdef_filter (search and
-   apply) and wiener_lr (also with every unit forced to take Wiener)
-   must be identical; wiener_solve's taps identical
-   or 1 apart where the exact coef * 128 lies within 1e-9 of a .5 tie;
+   apply), wiener_lr (also with every unit forced to take Wiener),
+   wiener_solve (taps and en; a tap 1 apart would have to sit within
+   1e-9 of a .5 tie) and cdef_decide must be identical (every call of
+   wiener_solve, cdef_decide and, where they run, mc_pred's calls too:
+   check_every, on every path that keeps a Capture);
    fwd_txq's levels and dequantised values identical except where the
    exact coefficient lies within the fp32 error bound of a .5 rounding
    tie, and such coefficients may be at most FDCT_TIE_SHARE of them.
@@ -36,7 +40,9 @@
    channel-list and U+V calls and of K3's fused, 64x64 and per-type
    calls are held against their plain versions and timed on a line of
    their own (k1_k3_modes), as they are, untimed, on phases 8, 9, 10, 12
-   and 13.
+   and 13.  wiener_solve, cdef_decide (its entry also with the plain
+   decision's device time by torch.profiler) and, on their paths,
+   mc_pred and cfl carry device_ms and host_ms beside ms.
 5. Checks the output: with libdav1d present the stream decodes to the
    encoder's recon; in every case 16 sampled superblocks a frame re-derive
    from their records with the numpy oracles onto the pre-filter recon,
@@ -49,19 +55,22 @@
    OFF_FRAMES frames, with the counts set to 0 before it: K1-K4 must
    launch, and its output is checked the same way.
 7. Times a second encode of the first KEY_TIMED frames of the main path
-   (frames/s), then an encode of the first four with each device stage
+   (frames/s), then an encode of the first BREAKDOWN_FRAMES with each
+   device stage
    timed serialised (wavefront pass, band maps, the filter chain and,
    inside it, CDEF and LR); with --profile also under torch.profiler (the
-   card's busy time by kernel; minutes).  Times the CDEF decision glue
-   (ops/cdef.py decide) alone beside its bound.
+   card's busy time by kernel; minutes).
 8. Drives the mixed-GOP path: bench.py's mixed configuration (its GOP
-   cut to MIXED_FRAMES frames of 1920x1080: 1 key + 5 inter,
+   cut to MIXED_FRAMES frames of 1920x1080: 1 key + 3 inter,
    max_key_frame_interval 240, low latency, speed-6 defaults), with the
    counts set to 0 before it.  All inter frames must take the inter
    wavefront, every kernel
    but the speed-5 path's must launch (K9 mc_pred, K10 me_fullpel and
-   fwd_txq with thinning among them), and
-   blocks must choose inter prediction with nonzero MVs.  Holds K9 and
+   fwd_txq with thinning among them; K9 6 times an inter frame: each
+   level's luma race in the residual mode and its U and V in one launch;
+   K15 once a frame), and
+   blocks must choose inter prediction with nonzero MVs.  Holds K9 (its
+   largest race call and U + V call, mc_pred_calls) and
    K10 (identical) and fwd_txq with thinning (the tie rule) against their
    plain versions on the path's largest calls, timed beside their bounds
    (fwd_txq with thinning also sums-only, and sums-only over one
@@ -74,7 +83,8 @@
    SpeedSettings.from_preset(5) (CFL in the pass, the host deblock level
    search, the CDEF search outside the chain, the SGR and per-unit Wiener
    LR search), SPEED5_FRAMES frames, with the counts set to 0 before it:
-   K1-K3, K5, K6, K8 in frame mode and K11 cfl must launch, K4 deblock and
+   K1-K3, K5, K6, K8 in frame mode and K11 cfl must launch (K15 once a
+   frame), K4 deblock and
    K7 wiener_solve must not. Holds K11 and K8's frame mode (stripes 64 and
    32) against their plain versions, timed beside their bounds, and times
    the CDEF search outside the chain; re-derives sampled superblocks and
@@ -210,8 +220,9 @@
 
 Before the kernels line it prints the wall seconds of phases 1-7
 together and of each later phase (phase_wall_s), and nvcc's ptxas lines
-of every kernel's entry functions (each of K3's and K1's instantiations:
-registers, stack frame, spills) after the build.  The line before the
+of every kernel's entry functions (each instantiation: registers, stack
+frame, spills) after the build; K1, K3, K7, K9 and K15 must report no
+stack frame and no spills.  The line before the
 last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero.
 """
@@ -229,9 +240,9 @@ from pathlib import Path
 # section 4): every path keeps its configuration and frame size, and runs
 # fewer frames
 W, H, NFRAMES = 1920, 1080, 4  # key frames of the main path
-MIXED_FRAMES = 6  # bench.py's mixed GOP cut to 1 key + 5 inter
-MIXED_TIMED = 3  # frames of the mixed GOP's timed second encode
-SPEED5_FRAMES = 2  # key frames of the speed-5 path (phase 9)
+MIXED_FRAMES = 4  # bench.py's mixed GOP cut to 1 key + 3 inter
+MIXED_TIMED = 2  # frames of the mixed GOP's timed second encode
+SPEED5_FRAMES = 1  # key frames of the speed-5 path (phase 9)
 SPEED5_TIMED = 1  # frames of the speed-5 path's timed second encode
 DEFAULT_FRAMES = 5  # EncoderConfig()'s pyramid: 1 key + one sub-GOP of 4
 #                     (the first ALTREF on the inter wavefront, 3 host
@@ -240,6 +251,7 @@ DEFAULT_FILTER_FRAMES = 2  # host frames re-derived through the numpy filters
 CFL_FRAMES = 1  # speed-5 key frames of content whose chroma follows luma
 GOP5_FRAMES = 2  # the speed-5 GOP: 1 key + 1 inter
 KEY_TIMED = 2  # frames of the keyframe path's timed second encode
+BREAKDOWN_FRAMES = 2  # frames of the keyframe path's stage breakdown
 SB_SAMPLES = 16
 FILTER_FRAMES = 1  # frames whose whole filter chain is re-derived in numpy
 INTER_FILTER_FRAMES = 1  # inter frames of the mixed GOP re-derived so
@@ -323,6 +335,38 @@ def host_ms(fn, reps: int = 100) -> float:
     t = (time.perf_counter() - t0) / reps * 1e3
     torch.cuda.synchronize()
     return t
+
+
+def profiler_ms(fn, reps: int = 20):
+    """Device time of one call of fn for calls a CUDA graph cannot capture
+    (a host-to-device copy inside): the self device time of every kernel
+    torch.profiler records over `reps` calls, summed; None where the
+    profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    except RuntimeError as e:  # a measurement, not a check: say so
+        print(json.dumps({"profiler_ms": f"not measured: {e}"}))
+        return None
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+             for e in prof.key_averages())
+    return us / reps / 1e3 if us else None
+
+
+def timed(call, reps: int = 20) -> dict:
+    """A call's eager ms (cuda_ms, the host's issue time included),
+    device_ms (graph_ms) and host_ms."""
+    return {"ms": cuda_ms(call, reps), "device_ms": graph_ms(call, reps),
+            "host_ms": host_ms(call)}
 
 
 K2_EAGER_REPS = 100  # back-to-back calls a K2 ms: the host's issue time
@@ -587,13 +631,51 @@ MC_PASS_OPS = (18, 20)  # a sample of the horizontal / vertical 8-tap pass:
 SAD_OPS = 3  # subtract, absolute value, accumulate
 
 
+def _rect_union(shape, y, x, hh: int, ww: int) -> int:
+    """Samples of a (H, W) plane under the union of the hh x ww
+    rectangles at (y, x) (a difference map, summed twice)."""
+    import torch
+
+    H, W = shape
+    d = torch.zeros((H + 1, W + 1), dtype=torch.int32, device=y.device)
+    y0, x0 = y.long().clamp(0, H), x.long().clamp(0, W)
+    y1, x1 = (y.long() + hh).clamp(0, H), (x.long() + ww).clamp(0, W)
+    one = torch.ones_like(y0, dtype=torch.int32)
+    for yy, xx, sign in ((y0, x0, 1), (y0, x1, -1), (y1, x0, -1),
+                         (y1, x1, 1)):
+        d.index_put_((yy, xx), one * sign, accumulate=True)
+    return int((d.cumsum(0).cumsum(1)[:H, :W] > 0).sum())
+
+
 def _mc_work(a, k):
-    """Bytes and operations of one K9 launch: the padded reference plane
-    read once (uint8), four int32 words a block in, the int32 prediction
-    out; the two passes over each block's samples."""
-    ref, n, w, h = a[0], a[2].numel(), a[6], a[7]
-    return (ref.numel() * ref.element_size() + n * 16 + n * w * h * 4,
-            n * ((h + 7) * w * MC_PASS_OPS[0] + h * w * MC_PASS_OPS[1]))
+    """Bytes and operations of one K9 launch in any mode: each plane's
+    windows read once (the union of its blocks' (h + 7) x (w + 7) windows
+    on the padded plane), the source blocks once in the residual mode
+    (their union), two int32 words a position and two an MV, and each
+    int32 output (prediction, residual or both, a plane each) written
+    once; the two passes over each block's samples, and a subtraction a
+    sample in the residual mode."""
+    import torch
+
+    refs = a[0] if isinstance(a[0], (tuple, list)) else (a[0],)
+    margin, px, py, mvr, mvc, w, h, sub_x, sub_y = a[1:10]
+    src, cands = k.get("src"), k.get("cands", 1)
+    srcs = None if src is None else (src if isinstance(src, (tuple, list))
+                                     else (src,))
+    P, n, elt = len(refs), mvr.numel(), refs[0].element_size()
+    pos = torch.arange(n, device=mvr.device) // cands
+    ix = (((px.long()[pos] << 4) + (mvc.long() << (1 - sub_x))) >> 4) \
+        - 3 + margin
+    iy = (((py.long()[pos] << 4) + (mvr.long() << (1 - sub_y))) >> 4) \
+        - 3 + margin
+    nbytes = (P * _rect_union(refs[0].shape, iy, ix, h + 7, w + 7) * elt
+              + px.numel() * 8 + n * 8)
+    outs = (srcs is None or k.get("both", False)) + (srcs is not None)
+    nbytes += outs * P * n * h * w * 4
+    if srcs is not None:
+        nbytes += P * _rect_union(srcs[0].shape, py, px, h, w) * elt
+    return (nbytes, P * n * ((h + 7) * w * MC_PASS_OPS[0] + h * w
+                             * (MC_PASS_OPS[1] + (srcs is not None))))
 
 
 def _me_work(a, k):
@@ -642,14 +724,15 @@ def _cfl_work(a, k):
 
 
 def _decide_work(a, k):
-    """Bytes and operations of the CDEF decision (ops/cdef.py decide): the
-    11 candidates' superblock SSE (int32) and the per-mi skip map read,
-    the per-SB index map written; the joint cost, per-SB and frame sums
-    and argmins over the 8 pairs, and the skip reduction per mi."""
+    """Bytes and operations of K15 (ops/cdef.py decide): the 11 candidates'
+    superblock SSE (int64) and the per-mi skip map read once, use_sb,
+    frame_best and the per-SB index map written; the joint costs, their
+    per-SB and frame sums and argmins over the 8 pairs, and a test a mi."""
     sse, skip = a[0], a[1]
     nsb = sse[0].numel()
-    return (sse.numel() * 4 + skip.numel() * skip.element_size()
-            + nsb * 4 + 16, nsb * 8 * 5 + skip.numel())
+    return (sse.numel() * sse.element_size()
+            + skip.numel() * skip.element_size() + nsb * 4 + 5,
+            nsb * 8 * 5 + skip.numel())
 
 
 def k1_call(a, k) -> dict:
@@ -713,6 +796,7 @@ WORK = {
     "fwd_txq": lambda a, k: _fwd_work(a, k, k.get("levels", True)),
     "fwd_txq_thin": lambda a, k: _fwd_work(a, k, k.get("levels", True)),
     "mc_pred": _mc_work,
+    "mc_pred_uv": _mc_work,
     "me_fullpel": _me_work,
     "me_fullpel_frame": _me_work,
     "cdef_decide": _decide_work,
@@ -812,6 +896,15 @@ def _deblock_pass_work(a) -> tuple:
             img.numel() * 100 / 4)
 
 
+# functions whose every call Capture keeps, for check_every: K9, K15, K7;
+# of RELAUNCH only the inputs
+EVERY_CALL = ("mc_block_batch", "decide", "wiener_solve")
+RELAUNCH = ("mc_block_batch",)
+# kernels whose ptxas report must show no stack frame and no spills
+NO_STACK = ("intra_pred", "inv_txfm", "mc_pred", "wiener_solve",
+            "cdef_decide")
+
+
 class Capture:
     """Wraps the kernels' public functions during the main path, keeps the
     inputs of each kernel's largest call (cloned) and sums the bound of
@@ -819,7 +912,9 @@ class Capture:
     chain): the least time the card could take for the stage's kernel
     work.  For the functions named in `keep`, also every call's
     (arguments, keywords, result) in `every[name]`, for the parity of
-    each call against the plain version on the same card tensors.  With
+    each call against the plain version on the same card tensors (K9,
+    K15 and K7 always: EVERY_CALL); ncalls["cdef_decide_plain"] counts
+    the plain decision's calls.  With
     shapes, K1, K2, K3 and K11 are keyed by their call's shape as well
     (shape_key), so that each shape keeps its own largest call; ncalls
     counts the calls under each key."""
@@ -835,9 +930,18 @@ class Capture:
         self.ncalls = Counter()
         self.shapes = shapes
         self.bounds = {}
-        self.every = {name: [] for name in keep}
+        self.every = {name: [] for name in keep + EVERY_CALL}
+        self._later = []  # (stage, work, a, k) of EVERY_CALL's calls
+        # the plain decision must not run while a card is present
+        orig_plain = cdef.decide_plain
+
+        def plain(*a, **k):
+            self.ncalls["cdef_decide_plain"] += 1
+            return orig_plain(*a, **k)
+
+        cdef.decide_plain = plain
+        self._undo = [(cdef, "decide_plain", orig_plain)]
         self.stage = "wavefront_pass"
-        self._undo = []
         for mod, name, stage in (
                 (device_pipeline, "launch_band_rd_maps", "band_maps"),
                 (filter_chain, "launch_filter_chain", "filter_chain"),
@@ -875,8 +979,10 @@ class Capture:
                  lambda a, k: ("fwd_txq" if k.get("thr") is None
                                else "fwd_txq_thin"),
                  lambda a, k: a[0].numel()),
-                (mc, "mc_block_batch", "mc_pred",
-                 lambda a, k: a[2].numel() * a[6] * a[7]),
+                (mc, "mc_block_batch",
+                 lambda a, k: ("mc_pred_uv" if isinstance(a[0], tuple)
+                               or a[8] else "mc_pred"),
+                 lambda a, k: a[4].numel() * a[6] * a[7]),
                 (device_pipeline, "me_fullpel",
                  lambda a, k: k.get("count", "me_fullpel"),
                  lambda a, k: a[0].numel()),
@@ -921,7 +1027,14 @@ class Capture:
         def spy(*a, **k):
             n = size(a, k)
             kk_ = key(a, k) if callable(key) else key
-            b = bound_ms(*WORK[kk_ if kk_ in WORK else name](a, k))
+            work = WORK[kk_ if kk_ in WORK else name]
+            if name in EVERY_CALL:
+                # counted in restore(), outside the timed stages: K9's
+                # count reads its lanes back from the card
+                self._later.append((self.stage, work, a, k))
+                b = 0.0
+            else:
+                b = bound_ms(*work(a, k))
             if self.shapes and kk_ in SHAPED:
                 kk_ = shape_key(kk_, a, k)
             self.ncalls[kk_] += 1
@@ -943,12 +1056,19 @@ class Capture:
     def _keep(self, name, orig, a, k):
         out = orig(*a, **k)
         if name in self.every:
-            self.every[name].append((a, k, out))
+            # K9's outputs (~70 MB a race) are not held: holding them would
+            # keep the allocator from reusing their memory inside the timed
+            # stages; check_every launches the kernel again on the inputs
+            self.every[name].append(
+                (a, k, None if name in RELAUNCH else out))
         return out
 
     def restore(self):
         for mod, name, orig in self._undo:
             setattr(mod, name, orig)
+        for stage, work, a, k in self._later:
+            self.bounds[stage] += bound_ms(*work(a, k))
+        self._later = []
 
 
 def fdct_ties(resid, Fv, FhT, tidx):
@@ -1153,6 +1273,37 @@ def check_modes(calls, path: str, card: str, timed: bool = False,
     print(json.dumps({"k1_k3_modes": out, "path": path, "card": card}))
 
 
+def check_decide_launches(counts, cap, frames: int, path: str) -> None:
+    """K15 must have launched once for each of the path's frames (each
+    runs CDEF), and the plain decision never."""
+    if counts["cdef_decide"] != frames or cap.ncalls["cdef_decide_plain"]:
+        raise RuntimeError(
+            f"cdef_decide launched {counts['cdef_decide']} times for "
+            f"{frames} frames on {path}, the plain decision ran "
+            f"{cap.ncalls['cdef_decide_plain']} times")
+
+
+def check_every(cap, path: str, card: str) -> dict:
+    """Every call of K9, K15 and K7 kept on this path (Capture's
+    EVERY_CALL) held against its plain version on the same card tensors
+    (K9 launched again on its kept inputs): identical, or the path fails.
+    Prints and returns the calls and the largest difference of each."""
+    from rav1e_tpu_torch.ops import cdef, lrf, mc
+
+    plain = {"mc_block_batch": (mc.mc_block_batch, mc.mc_block_batch_plain),
+             "decide": (cdef.decide, cdef.decide_plain),
+             "wiener_solve": (lrf.wiener_solve, lrf.wiener_solve_plain)}
+    out = {}
+    for name, (kern, fn) in plain.items():
+        calls = cap.every.get(name, [])
+        err = max((_same(kern(*a, **k) if got is None else got,
+                         fn(*a, **k), f"{name} ({path})")
+                   for a, k, got in calls), default=0)
+        out[name] = {"calls": len(calls), "max_abs_diff": err}
+    print(json.dumps({"every_call": out, "path": path, "card": card}))
+    return out
+
+
 def check_kernels(calls, counts, frames_per_run):
     """Parity, times and bounds of each kernel on its captured inputs.
     Returns the kernels JSON list."""
@@ -1232,7 +1383,9 @@ def _same(got, ref, name) -> int:
     """max |got - ref| over tensors (or tuples of them); raises unless 0."""
     import torch
 
-    pairs = zip(got, ref) if isinstance(got, tuple) else [(got, ref)]
+    pairs = list(zip(got, ref)) if isinstance(got, tuple) else [(got, ref)]
+    if any(g.shape != r.shape for g, r in pairs):
+        raise RuntimeError(f"{name}: shapes differ from its plain version")
     err = max(int((g.to(torch.int64) - r.to(torch.int64)).abs().max())
               for g, r in pairs)
     if err:
@@ -1268,9 +1421,10 @@ def wiener_ties(ds, ss, taps, ref):
 
 
 def check_filter_kernels(calls, entry):
-    """K5-K8 (cdef_dir, cdef_filter, wiener_solve, wiener_lr) on the main
-    path's largest calls: parity with the plain versions, times, bounds
-    (WORK counts the bytes and operations of each)."""
+    """K5-K8 (cdef_dir, cdef_filter, wiener_solve, wiener_lr) and K15
+    (cdef_decide) on the main path's largest calls: parity with the plain
+    versions, times, bounds (WORK counts the bytes and operations of
+    each)."""
     import torch
 
     from rav1e_tpu_torch.ops import cdef, lrf
@@ -1310,12 +1464,13 @@ def check_filter_kernels(calls, entry):
     if not bool((en == re).all()) and not ties:
         raise RuntimeError("wiener_solve en differs from its plain version")
     print(json.dumps({"wiener_solve_ties": ties}))
+    r = timed(lambda: lrf.wiener_solve(ds, ss))
     entry("wiener_solve", "rav1e_tpu_torch/csrc/wiener_solve.cu",
           "rav1e_tpu/ops/filter_chain_jax.py:25",
-          int((taps - rt).abs().max()),
-          cuda_ms(lambda: lrf.wiener_solve(ds, ss)),
+          int((taps - rt).abs().max()), r["ms"],
           cuda_ms(lambda: lrf.wiener_solve_plain(ds, ss), reps=5),
-          WORK["wiener_solve"](a, {}))
+          WORK["wiener_solve"](a, {}), device_ms=r["device_ms"],
+          host_ms=r["host_ms"])
 
     # K8 wiener_lr on the luma plane, as the main path called it and with
     # every unit taking Wiener (en on, lam far below 0), so that the whole
@@ -1338,6 +1493,39 @@ def check_filter_kernels(calls, entry):
           cuda_ms(lambda: lrf.wiener_lr_plain(*a), reps=5),
           WORK["wiener_lr"](a, {}))
 
+    # K15 cdef_decide on the path's largest call (every call: check_every);
+    # the plain version's device time by the profiler (a graph cannot
+    # capture its host-to-device copy)
+    _, a, k = calls["cdef_decide"]
+    call = lambda: cdef.decide(*a, **k)
+    plain = lambda: cdef.decide_plain(*a, **k)
+    err = _same(call(), plain(), "cdef_decide")
+    r = timed(call)
+    entry("cdef_decide", "rav1e_tpu_torch/csrc/cdef_decide.cu",
+          "rav1e_tpu/ops/cdef_jax.py:279", err, r["ms"], cuda_ms(plain),
+          WORK["cdef_decide"](a, k), device_ms=r["device_ms"],
+          host_ms=r["host_ms"], plain_device_ms=profiler_ms(plain),
+          plain_host_ms=host_ms(plain), superblocks=int(a[0][0].numel()))
+
+
+# K9's calls kept on the inter path: the luma candidate race and chroma
+K9_KEYS = ("mc_pred", "mc_pred_uv")
+
+
+def k9_check(key, a, k, timed_: bool = True) -> dict:
+    """K9 on one kept call (mc_block_batch's arguments a, k): identical to
+    its plain version on the same card tensors; with timed_, its ms,
+    device_ms, host_ms and the plain version's ms, beside its bound."""
+    from rav1e_tpu_torch.ops import mc
+
+    call = lambda: mc.mc_block_batch(*a, **k)
+    plain = lambda: mc.mc_block_batch_plain(*a, **k)
+    work = WORK[key](a, k)
+    r = dict(err=_same(call(), plain(), key), blocks=int(a[4].numel()),
+             w=a[6], h=a[7], work=work, bound_ms=bound_ms(*work))
+    if timed_:
+        r.update(timed(call), plain_ms=cuda_ms(plain, reps=3))
+    return r
 
 
 def check_inter_kernels(calls, counts, frames_per_run):
@@ -1355,16 +1543,14 @@ def check_inter_kernels(calls, counts, frames_per_run):
     out = []
     entry = make_entry(out, counts, frames_per_run)
 
-    _, a, k = calls["mc_pred"]
-    err = _same(mc.mc_block_batch(*a, **k), mc.mc_block_batch_plain(*a, **k),
-                "mc_pred")
-    print(json.dumps({"mc_pred_call": {"blocks": int(a[2].numel()),
-                                       "w": a[6], "h": a[7], "sub": a[8]}}))
+    # K9: the largest luma race call and the largest chroma call
+    k9 = {key: k9_check(key, *calls[key][1:]) for key in K9_KEYS}
+    print(json.dumps({"mc_pred_calls": k9}))
+    r = k9["mc_pred"]
     entry("mc_pred", "rav1e_tpu_torch/csrc/mc_pred.cu",
-          "rav1e_tpu/ops/mc_jax.py:71", err,
-          cuda_ms(lambda: mc.mc_block_batch(*a, **k)),
-          cuda_ms(lambda: mc.mc_block_batch_plain(*a, **k), reps=3),
-          WORK["mc_pred"](a, k))
+          "rav1e_tpu/ops/mc_jax.py:71", max(v["err"] for v in k9.values()),
+          r["ms"], r["plain_ms"], r["work"], device_ms=r["device_ms"],
+          host_ms=r["host_ms"])
 
     _, a, k = calls["me_fullpel"]
     err = _same(dp.me_fullpel(*a, **k), dp.me_fullpel_plain(*a, **k),
@@ -1392,21 +1578,6 @@ def check_inter_kernels(calls, counts, frames_per_run):
         "sums_only_device_ms": graph_ms(lambda: sums(a[0])),
         "one_residual_sums_only_device_ms": graph_ms(lambda: sums(one))}}))
     return out
-
-
-def time_cdef_decide(calls) -> dict:
-    """The CDEF decision glue (ops/cdef.py decide: a few device torch ops
-    between K6's search and apply) timed alone on the main path's last
-    call, beside its bound."""
-    from rav1e_tpu_torch.ops import cdef
-
-    _, a, k = calls["cdef_decide"]
-    nbytes, ops = WORK["cdef_decide"](a, k)
-    tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
-    return {"ms": cuda_ms(lambda: cdef.decide(*a, **k)),
-            "bound_ms": max(tb, to),
-            "bound_by": "bytes" if tb >= to else "operations",
-            "superblocks": int(a[0][0].numel())}
 
 
 def time_stages(targets, secs) -> list:
@@ -1654,6 +1825,11 @@ def mixed_gop(card: str) -> list:
     if missing:
         raise RuntimeError(f"kernels not launched on the mixed path: "
                            f"{missing}")
+    check_decide_launches(counts, cap, MIXED_FRAMES, "the mixed GOP")
+    # K9 a level of an inter frame: the luma race and U + V (3 levels)
+    if counts["mc_pred"] != 6 * (MIXED_FRAMES - 1):
+        raise RuntimeError(f"{counts['mc_pred']} K9 launches for "
+                           f"{MIXED_FRAMES - 1} inter frames, not 6 each")
     n_inter = sum(fe._chk_wf.has_mv for fe in fes)
     if types.count("inter") != MIXED_FRAMES - 1 or \
             n_inter != MIXED_FRAMES - 1 or len(fes) != MIXED_FRAMES:
@@ -1681,6 +1857,7 @@ def mixed_gop(card: str) -> list:
         k: v / MIXED_FRAMES for k, v in cap.bounds.items()}, "card": card}))
     results = check_inter_kernels(cap.calls, counts, MIXED_FRAMES)
     check_modes(cap.calls, "mixed_gop", card)
+    check_every(cap, "mixed_gop", card)
     t1 = time.perf_counter()
     summary = check_output(data, recon, fes, INTER_FILTER_FRAMES)
     print(json.dumps({"mixed_output": summary, "bytes": sum(map(len, data)),
@@ -1725,10 +1902,11 @@ def check_speed5_kernels(calls, counts, frames_per_run):
     err = _same(intra.cfl(*a), intra.cfl_plain(*a), "cfl")
     print(json.dumps({"cfl_call": {"blocks": int(a[0].shape[0]),
                                    "n": int(a[0].shape[-1])}}))
+    r = timed(lambda: intra.cfl(*a))
     entry("cfl", "rav1e_tpu_torch/csrc/cfl.cu",
-          "rav1e_tpu/ops/intra_jax.py:317", err,
-          cuda_ms(lambda: intra.cfl(*a)),
-          cuda_ms(lambda: intra.cfl_plain(*a)), WORK["cfl"](a, {}))
+          "rav1e_tpu/ops/intra_jax.py:317", err, r["ms"],
+          cuda_ms(lambda: intra.cfl_plain(*a)), WORK["cfl"](a, {}),
+          device_ms=r["device_ms"], host_ms=r["host_ms"])
     errs = {}
     for key in ("wiener_lr_frame", "wiener_lr_frame_32"):
         _, a, _k = calls[key]
@@ -1755,7 +1933,8 @@ def _wiener_plain(a):
 
 
 def _search_apply_plain(y, u, v, sy, su, sv, skip, sb_lam, damping):
-    """ops/cdef.py search_apply through the plain versions of K5 and K6."""
+    """ops/cdef.py search_apply through the plain versions of K5, K6 and
+    K15."""
     from rav1e_tpu_torch.ops import cdef
 
     h, w = y.shape
@@ -1763,7 +1942,7 @@ def _search_apply_plain(y, u, v, sy, su, sv, skip, sb_lam, damping):
     act = cdef.active_blocks(skip, h, w)
     sse = cdef.cdef_filter_plain(y, u, v, sy, su, sv, dirs, var, act,
                                  damping, cdef.SEARCH)
-    sel = cdef.decide(sse, skip, sb_lam, h, w)
+    sel = cdef.decide_plain(sse, skip, sb_lam, h, w)
     return sel + cdef.cdef_filter_plain(y, u, v, sy, su, sv, dirs, var, act,
                                         damping, cdef.APPLY, sel[2])
 
@@ -1895,10 +2074,12 @@ def speed5(card: str) -> list:
     if len(fes) != SPEED5_FRAMES:
         raise RuntimeError(f"{len(fes)} of {SPEED5_FRAMES} frames took the "
                            "wavefront")
+    check_decide_launches(counts, cap, SPEED5_FRAMES, "the speed-5 path")
     print(json.dumps({"speed5_bound_ms_per_frame": {
         k: v / SPEED5_FRAMES for k, v in cap.bounds.items()}, "card": card}))
     results = check_speed5_kernels(cap.calls, counts, SPEED5_FRAMES)
     check_modes(cap.calls, "speed5", card)
+    check_every(cap, "speed5", card)
     print(json.dumps({"speed5_cdef_route": time_cdef_route(cap.calls),
                       "card": card}))
     t1 = time.perf_counter()
@@ -2064,6 +2245,7 @@ def default_gop(card: str) -> list:
         k: v / DEFAULT_FRAMES for k, v in cap.bounds.items()},
         "card": card}))
     check_modes(cap.calls, "default_gop", card)
+    check_every(cap, "default_gop", card)
     results = check_me_frame(me_calls, counts, DEFAULT_FRAMES)
     del me_calls[:]
 
@@ -2472,6 +2654,7 @@ def hbd_gop(card: str) -> list:
     route["bound_ms"] = cap.bounds.get("rd_maps", 0.0)
     print(json.dumps({"frame_rd_maps_route": route, "card": card}))
     results += check_hbd_calls(cap.every, names, HBD_BD)
+    check_every(cap, "hbd_gop", card)
     cap.every.clear()
     print(json.dumps({"hbd_12bit_kernels": check_12bit_kernels()}))
     print(json.dumps({"hbd_small_encodes": small_hbd_encodes()}))
@@ -2727,6 +2910,7 @@ def speed3(card: str) -> list:
     results = check_leaf_kernels(cap.calls, cap.ncalls, shape_counts,
                                    SPEED3_FRAMES)
     check_modes(cap.calls, "speed3", card)
+    check_every(cap, "speed3", card)
     t1 = time.perf_counter()
     digests = [recon_digest(r) for r in recon]
     print(json.dumps({"speed3_output": {
@@ -2940,6 +3124,7 @@ def tiles(card: str) -> list:
     for r in results:
         r["path"] = "rav1e_tpu/parallel/tiles.py:78 run_wavefront_sharded"
     check_modes(cap.calls, "tiles", card)
+    check_every(cap, "tiles", card)
     t2 = time.perf_counter()
     edges = sum(rederive_tile_edges(fe) for fe in fes)
     if not recon_check.filters_match(fes[0], fes[0]._chk_prefilter,
@@ -3279,6 +3464,7 @@ def analysis(card: str, key_fps: float, device: str = "cuda") -> list:
         cap.restore()
     t_enc = time.perf_counter() - t0
     counts = dict(kernels.COUNTS)
+    check_every(cap, "lr_unfused", card)
     lr_calls = [(a, k, out) for a, k, out in cap.every["wiener_lr"]
                 if k.get("count") == "wiener_lr_decide"]
     if (len(decided) != len(frames) or None in decided
@@ -3640,8 +3826,9 @@ def main() -> int:
                 if "registers" in ln or "spill" in ln
                 or "Function properties" in ln]
         print(json.dumps({"ptxas": name, "info": info}))
-        # K1 and K3 keep every array in registers: no stack, no spills
-        if name in ("intra_pred", "inv_txfm") and any(
+        # K1, K3, K7, K9 and K15 keep every array in registers: no stack,
+        # no spills
+        if name in NO_STACK and any(
                 "stack frame" in ln and not ln.startswith(
                     "0 bytes stack frame, 0 bytes spill stores, 0 bytes "
                     "spill loads") for ln in info):
@@ -3671,6 +3858,7 @@ def main() -> int:
     missing = [k for k in kernels.KERNELS[:8] if counts[k] == 0]
     if missing:
         raise RuntimeError(f"kernels not launched on the main path: {missing}")
+    check_decide_launches(counts, cap, NFRAMES, "the main path")
     if len(fes) != NFRAMES:
         raise RuntimeError(f"{len(fes)} of {NFRAMES} frames took the "
                            "wavefront")
@@ -3679,6 +3867,7 @@ def main() -> int:
         k: v / NFRAMES for k, v in cap.bounds.items()}, "card": card}))
     results = check_kernels(cap.calls, counts, NFRAMES)
     check_modes(cap.calls, "keyframes", card, timed=True)
+    check_every(cap, "keyframes", card)
     fwd_sums_only(cap.calls, card)
     t3 = time.perf_counter()
     summary = check_output(data, recon, fes, FILTER_FRAMES)
@@ -3716,10 +3905,8 @@ def main() -> int:
     print(json.dumps({"encode": {"frames": KEY_TIMED, "size": f"{W}x{H}",
                                  "seconds": t_enc, "fps": key_fps,
                                  "stages_s": encode.stages, "card": card}}))
-    print(json.dumps({"breakdown": breakdown(frames[:4],
+    print(json.dumps({"breakdown": breakdown(frames[:BREAKDOWN_FRAMES],
                                              "--profile" in sys.argv),
-                      "card": card}))
-    print(json.dumps({"cdef_decide": time_cdef_decide(cap.calls),
                       "card": card}))
     # each later phase's wall seconds, beside phases 1-7's together
     walls = {"phases_1_7": time.perf_counter() - t_start}

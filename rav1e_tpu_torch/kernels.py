@@ -33,7 +33,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 KERNELS = ("intra_pred", "fwd_txq", "inv_txfm", "deblock", "cdef_dir",
            "cdef_filter", "wiener_solve", "wiener_lr", "mc_pred", "me_fullpel",
-           "cfl", "mode_sad", "dr_predict", "build_edges")
+           "cfl", "mode_sad", "dr_predict", "build_edges", "cdef_decide")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -58,6 +58,7 @@ _FNS: dict = {}  # the bound entry point of each kernel, once loaded
 _vp = ctypes.c_void_p
 _ci = ctypes.c_int
 _cf = ctypes.c_float
+_cd = ctypes.c_double
 ARGTYPES = {
     "intra_pred": [ctypes.POINTER(_vp), ctypes.POINTER(_ci), _vp],
     "fwd_txq": [ctypes.POINTER(_vp), ctypes.POINTER(_ci), _cf, _cf, _vp],
@@ -72,14 +73,17 @@ ARGTYPES = {
                                                           _vp],
     "wiener_lr": [_vp, _ci, _vp, _ci, _vp, _ci, _ci, _ci, _ci, _ci, _vp, _vp,
                   _cf, _cf, _vp, _vp, _vp],
-    "mc_pred": [_vp, _ci, _ci, _ci, _ci, _ci, _vp, _vp, _vp, _vp, _ci, _ci,
-                _ci, _ci, _ci, _ci, _vp, _vp, _vp],
+    "mc_pred": [_vp, _vp, _ci, _ci, _ci, _ci, _ci, _vp, _vp, _vp, _vp, _ci,
+                _ci, _ci, _ci, _ci, _ci, _ci, _vp, _vp, _vp, _ci, _vp, _vp,
+                _vp],
     "me_fullpel": [_vp, _ci, _vp, _ci, _ci, _ci, _ci, _vp, _vp, _vp],
     "cfl": [_vp, _ci, _ci, _vp, _vp, _ci, _vp, _vp, _vp, _vp],
     "mode_sad": [_vp, _ci, _ci, _ci, _vp, _ci, _ci, _vp, _vp, _vp, _vp, _vp],
     "dr_predict": [_vp, _vp, _vp, _ci, _ci, _ci, _vp, _vp, _vp],
     "build_edges": [_vp, _ci, _ci, _ci] + [_vp] * 6 + [_ci] * 6
     + [_vp, _vp, _vp],
+    "cdef_decide": [_vp, _ci, _ci, _vp, _ci, _ci, _ci, _cd, _vp, _vp, _vp,
+                    _vp],
 }
 _ENTRY = {"intra_pred": "intra_pred", "fwd_txq": "fwd_txq",
           "inv_txfm": "inv_txfm", "deblock": "deblock_pass",
@@ -87,7 +91,7 @@ _ENTRY = {"intra_pred": "intra_pred", "fwd_txq": "fwd_txq",
           "wiener_solve": "wiener_solve", "wiener_lr": "wiener_lr",
           "mc_pred": "mc_pred", "me_fullpel": "me_fullpel", "cfl": "cfl",
           "mode_sad": "mode_sad", "dr_predict": "dr_predict",
-          "build_edges": "build_edges"}
+          "build_edges": "build_edges", "cdef_decide": "cdef_decide"}
 
 
 def reset_counts() -> None:

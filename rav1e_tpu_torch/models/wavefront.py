@@ -764,16 +764,18 @@ class WavefrontPass(torch.nn.Module):
         d = (a - b).to(torch.int64)
         return (d * d).sum((-1, -2)).to(torch.float32)
 
-    def _inter_level(self, n, refs, srcs, cands_mv, cands_bits, lam_f, qdc,
-                     qac):
+    def _inter_level(self, n, refs, srcs, srcs8, cands_mv, cands_bits, lam_f,
+                     qdc, qac):
         """Candidate race + winner coding of every n-block of the frame
         (wavefront.py:416 _inter_level).  refs: padded Y, U, V planes;
-        srcs: Y, U, V int32 source planes; cands_mv (N, Cn, 2) luma
-        1/8-pel, cands_bits (N, Cn) rate biases, lam_f/qdc/qac (N,).  All
-        candidates of the level race in one K9 launch and one K2 launch
-        (with level-1 thinning); the winner's luma comes from the race,
-        its chroma from one K9 launch a plane and one K2 (thinned) and one
-        K3 launch for both planes.  Returns a dict of per-block outputs in
+        srcs: Y, U, V int32 source planes, srcs8 the same as uploaded
+        (uint8); cands_mv (N, Cn, 2) luma 1/8-pel, cands_bits (N, Cn) rate
+        biases, lam_f/qdc/qac (N,).  All candidates of the level race in
+        one K9 launch, which writes their residuals (the prediction is
+        src - residual), and one K2 launch (with level-1 thinning); the
+        winner's luma comes from the race, its chroma from one K9 launch
+        for both planes (prediction and residual), one K2 (thinned) and
+        one K3 launch.  Returns a dict of per-block outputs in
         _grid_blocks order."""
         bd = self.bd
         dev = lam_f.device
@@ -784,36 +786,36 @@ class WavefrontPass(torch.nn.Module):
         shift, shift_c = tx_scale(n, n), tx_scale(n2, n2)
         qacf = qac.to(torch.float32)
         thr1 = (lam_f * THIN_RATE / (self.tx_alpha[n] * qacf) + qac) / 2.0
-        rep = lambda a: a.repeat_interleave(Cn, 0)
-        pred_all = mc.mc_block_batch(
-            refs[0], mc.MC_MARGIN, rep(px), rep(py),
-            cands_mv[..., 0].reshape(-1), cands_mv[..., 1].reshape(-1), n, n,
-            0, 0, bd).reshape(
-                N, Cn, n, n)
+        resid_all = mc.mc_block_batch(
+            refs[0], mc.MC_MARGIN, px, py, cands_mv[..., 0].reshape(-1),
+            cands_mv[..., 1].reshape(-1), n, n, 0, 0, bd, src=srcs8[0],
+            cands=Cn).reshape(N, Cn, n, n)
         Fv, FhT = self.mats[n]
         ex = lambda v: v[:, None].expand(N, Cn)
         lv_all, dq_all, txd, rate_all = tt.fwd_txq(
-            src_b[:, None] - pred_all, Fv, FhT, ex(qdc), ex(qac), shift,
-            bit_depth=bd, thr=ex(thr1))
+            resid_all, Fv, FhT, ex(qdc), ex(qac), shift, bit_depth=bd,
+            thr=ex(thr1))
         costs = txd * DIST_SCALE + lam_f[:, None] * (rate_all + cands_bits)
         ci = torch.argmin(costs, dim=1)
         mv = self._pick(cands_mv, ci)
         mv_bits = self._pick(cands_bits, ci)
         mvr, mvc = mv[:, 0].contiguous(), mv[:, 1].contiguous()
-        pred, lv, dq, rate = (self._pick(pred_all, ci), self._pick(lv_all, ci),
-                              self._pick(dq_all, ci), self._pick(rate_all, ci))
+        # the winner's prediction, exactly: src - (src - pred)
+        pred = src_b - self._pick(resid_all, ci)
+        lv, dq, rate = (self._pick(lv_all, ci), self._pick(dq_all, ci),
+                        self._pick(rate_all, ci))
         # at n = 64 the coded 32x32 corner of TX_64X64
         recon = tt.inv_txfm(dq, tn.DCT_DCT, bd, pred=pred, tx64=n == 64)
-        pred_c = torch.stack([mc.mc_block_batch(
-            refs[p], mc.MC_MARGIN, px >> 1, py >> 1, mvr, mvc, n2, n2, 1, 1, bd)
-            for p in (1, 2)], 1)
+        pred_c, resid_c = mc.mc_block_batch(
+            (refs[1], refs[2]), mc.MC_MARGIN, px >> 1, py >> 1, mvr, mvc, n2,
+            n2, 1, 1, bd, src=(srcs8[1], srcs8[2]), both=True)
         src_c = torch.stack([self._src_blocks(srcs[p], n, 1) for p in (1, 2)],
                             1)
         FvC, FhTC = self.mats[n2]
         ex2 = lambda v: v[:, None].expand(N, 2)
         lv_c, dq_c, _t, rate_c = tt.fwd_txq(
-            src_c - pred_c, FvC, FhTC, ex2(qdc), ex2(qac), shift_c,
-            bit_depth=bd, thr=ex2(thr1))
+            resid_c, FvC, FhTC, ex2(qdc), ex2(qac), shift_c, bit_depth=bd,
+            thr=ex2(thr1))
         recon_c = tt.inv_txfm(dq_c, tn.DCT_DCT, bd, pred=pred_c)
         # skip-vs-code RD over all three planes (host _block analog)
         sse = self._sse_exact
@@ -838,11 +840,11 @@ class WavefrontPass(torch.nn.Module):
                         torch.int16),
                     lvU=lv_c[:, 0], lvV=lv_c[:, 1])
 
-    def _inter_phase(self, upload, srcs, srcY8, params, o, ro):
+    def _inter_phase(self, upload, srcs, srcs8, params, o, ro):
         """Phase A of the inter pass (wavefront.py:1032-1096): the per-32
         lambda/quantiser grids from the parameter vector at offset o, the
         padded reference planes at byte ro of the upload, the in-pass ME
-        (K10), the
+        (K10) on the uint8 luma of srcs8 (the uploaded Y, U, V), the
         candidates, and the three levels' races.  Returns (i64, i32, i16)
         dicts shaped (R, C[, 4[, 4]], ...) and the ME map in 1/8 pel."""
         R, C, Hp, Wp = self.R, self.C, self.Hp, self.Wp
@@ -860,15 +862,15 @@ class WavefrontPass(torch.nn.Module):
         refVp = upload[ro : ro + HcM * WcM].reshape(HcM, WcM)
         refs = (refYp, refUp, refVp)
         core = refYp[M : M + Hp, M : M + Wp]
-        me8 = dp.me_fullpel(srcY8, core, 32) * 8  # (R2, C2, 2)
+        me8 = dp.me_fullpel(srcs8[0], core, 32) * 8  # (R2, C2, 2)
         cand32, cbits32, cand64, cbits64 = self._inter_candidates(me8)
         lam64 = lam32.reshape(-1, 4).mean(1)
         qdc64 = qdc32.reshape(-1, 4)[:, 0]
         qac64 = qac32.reshape(-1, 4)[:, 0]
-        i64 = self._inter_level(64, refs, srcs, cand64, cbits64, lam64, qdc64,
-                                qac64)
-        i32 = self._inter_level(32, refs, srcs, cand32, cbits32, lam32, qdc32,
-                                qac32)
+        i64 = self._inter_level(64, refs, srcs, srcs8, cand64, cbits64, lam64,
+                                qdc64, qac64)
+        i32 = self._inter_level(32, refs, srcs, srcs8, cand32, cbits32, lam32,
+                                qdc32, qac32)
         # 16-level candidates from the 32 winner: winner, zero and the
         # quarter-pel nudges (6 instead of 12 races)
         w32 = torch.stack([i32["mvr"], i32["mvc"]], -1)[:, None, :]
@@ -880,8 +882,9 @@ class WavefrontPass(torch.nn.Module):
         cbits16 = torch.as_tensor([2.0, 4.0, 7.0, 7.0, 7.0, 7.0],
                                   device=w32.device).expand(cand16.shape[:2])
         rep4 = lambda a: a.repeat_interleave(4, 0)
-        i16 = self._inter_level(16, refs, srcs, rep4(cand16), rep4(cbits16),
-                                rep4(lam32), rep4(qdc32), rep4(qac32))
+        i16 = self._inter_level(16, refs, srcs, srcs8, rep4(cand16),
+                                rep4(cbits16), rep4(lam32), rep4(qdc32),
+                                rep4(qac32))
         shape = lambda d, lead: {k: v.reshape(lead + v.shape[1:])
                                  for k, v in d.items()}
         return (shape(i64, (R, C)), shape(i32, (R, C, 4)),
@@ -935,9 +938,12 @@ class WavefrontPass(torch.nn.Module):
         if self.inter_on:
             # phase A: every inter block of every level, fully batched (MC
             # reads the reference, never the recon carry)
+            srcs8 = (upload[:nY].reshape(Hp, Wp),
+                     upload[nY : nY + nC].reshape(Hp >> 1, Wp >> 1),
+                     upload[nY + nC : nY + 2 * nC].reshape(Hp >> 1, Wp >> 1))
             i64, i32, i16, me8 = self._inter_phase(
-                upload, (srcY, srcU, srcV), upload[:nY].reshape(Hp, Wp),
-                params, o + 8, nY + 2 * nC + 4 * plen)
+                upload, (srcY, srcU, srcV), srcs8, params, o + 8,
+                nY + 2 * nC + 4 * plen)
 
         dev = upload.device
         tY = torch.zeros((R, C, 64, 64), dtype=torch.int32, device=dev)

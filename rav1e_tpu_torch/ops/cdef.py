@@ -10,7 +10,7 @@ filters with the strengths chosen here.
 `search_apply` finds every 8x8 block's direction (K5), sums each
 superblock's SSE against the source for the 8 luma and 3 chroma
 candidates (K6, search mode), decides between per-superblock and
-per-frame strengths with a few device-side torch ops (no host sync), and
+per-frame strengths (K15, one CTA on the device: no host sync), and
 writes the chosen candidate of each superblock (K6, apply mode).  CDEF
 reads only pre-CDEF samples, so each 8x8 block's output does not depend
 on its neighbours' strengths and a per-superblock gather equals a
@@ -331,12 +331,12 @@ def cdef_filter(y, u, v, sy, su, sv, dirs, var, active, damping: int,
 
 # -- the search ---------------------------------------------------------------------
 
-def decide(sse: torch.Tensor, skip: torch.Tensor, sb_lam: float, h: int,
-           w: int):
-    """Per-superblock vs per-frame strengths from K6's superblock SSE
-    (cdef_jax.py:279-299), on the device: (use_sb, frame_best, idx_map).
-    Costs are exact integers; the per-SB mode's extra header and cdef_idx
-    bits are charged at sb_lam (inf forces the frame pair)."""
+def decide_plain(sse: torch.Tensor, skip: torch.Tensor, sb_lam: float,
+                 h: int, w: int):
+    """Plain version of K15: per-superblock vs per-frame strengths from
+    K6's superblock SSE (cdef_jax.py:279-299): (use_sb, frame_best,
+    idx_map).  Costs are exact integers; the per-SB mode's extra header
+    and cdef_idx bits are charged at sb_lam (inf forces the frame pair)."""
     nby, nbx = h // 8, w // 8
     nsby, nsbx = -(-h // 64), -(-w // 64)
     dev = sse.device
@@ -356,6 +356,42 @@ def decide(sse: torch.Tensor, skip: torch.Tensor, sb_lam: float, h: int,
               < frame_cost[frame_best].to(torch.float64))
     idx_map = torch.where(use_sb, sb_idx, frame_best).to(torch.int32)
     return use_sb, frame_best.to(torch.int32), idx_map
+
+
+# superblocks K15's one CTA takes (its shared memory: two bytes each)
+DECIDE_MAX_SB = 16384
+
+
+def decide(sse: torch.Tensor, skip: torch.Tensor, sb_lam: float, h: int,
+           w: int):
+    """The CDEF decision of one frame (K15); see decide_plain.  sse: the
+    (11, nsby, nsbx) superblock SSE; skip: the per-mi map (at least
+    h/8*2 x w/8*2; nonzero is skip).  Returns use_sb (bool), frame_best
+    (int32) and idx_map (nsby, nsbx) int32, on sse's device."""
+    if sse.device.type == "cpu":
+        return decide_plain(sse, skip, sb_lam, h, w)
+    nby, nbx = h // 8, w // 8
+    nsby, nsbx = -(-h // 64), -(-w // 64)
+    if (sse.shape != (11, nsby, nsbx) or skip.dim() != 2
+            or skip.shape[0] < nby * 2 or skip.shape[1] < nbx * 2
+            or not 0 < nsby * nsbx <= DECIDE_MAX_SB):
+        raise ValueError("cdef decide: SSE (11, nsby, nsbx) of at most "
+                         f"{DECIDE_MAX_SB} superblocks and a skip map "
+                         "covering the frame's mi")
+    s = sse if sse.dtype == torch.int64 else sse.to(torch.int64)
+    s = s.contiguous()
+    sk = skip if skip.dtype in (torch.bool, torch.uint8) else skip != 0
+    if sk.stride(1) != 1:
+        sk = sk.contiguous()
+    dev = s.device
+    use_sb = torch.empty((), dtype=torch.bool, device=dev)
+    frame_best = torch.empty((), dtype=torch.int32, device=dev)
+    idx_map = torch.empty((nsby, nsbx), dtype=torch.int32, device=dev)
+    kernels.launch("cdef_decide", s, s.data_ptr(), nsby, nsbx, sk.data_ptr(),
+                   sk.stride(0), nby * 2, nbx * 2, float(sb_lam),
+                   use_sb.data_ptr(), frame_best.data_ptr(),
+                   idx_map.data_ptr())
+    return use_sb, frame_best, idx_map
 
 
 def active_blocks(skip: torch.Tensor, h: int, w: int) -> torch.Tensor:

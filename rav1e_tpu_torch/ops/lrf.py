@@ -38,7 +38,7 @@ from rav1e_tpu_torch.ops import lrf_np as lr
 # package's lrf_jax.LR_RATE_Y/C, its host path's constants)
 LR_RATE_Y = 12.0
 LR_RATE_C = 9.0
-BAND = 64  # rows per stage-1 partial sum of K7
+TILE = 64  # K7's stage-1 tiles are TILE x TILE samples of one plane
 
 
 def taps7(t3: torch.Tensor) -> torch.Tensor:
@@ -138,15 +138,15 @@ def wiener_solve(ds, ss):
     ds = [_rows(d) for d in ds]
     ss = [_rows(s) for s in ss]
     dev = ds[0].device
-    nbands = -(-max(d.shape[0] for d in ds) // BAND)
-    part = torch.empty(3 * 2 * nbands * 9, dtype=torch.int64, device=dev)
+    ntiles = sum(-(-d.shape[0] // TILE) * -(-d.shape[1] // TILE) for d in ds)
+    part = torch.empty(18 * ntiles, dtype=torch.int64, device=dev)
     taps = torch.empty((6, 3), dtype=torch.int32, device=dev)
     en = torch.empty(3, dtype=torch.int32, device=dev)
     args = []
     for d, s in zip(ds, ss):
         args += [d.data_ptr(), s.data_ptr(), d.stride(0), s.stride(0),
                  d.shape[0], d.shape[1]]
-    kernels.launch("wiener_solve", ds[0], *args, nbands, part.data_ptr(),
+    kernels.launch("wiener_solve", ds[0], *args, ntiles, part.data_ptr(),
                    taps.data_ptr(), en.data_ptr())
     return taps, en
 

@@ -17,8 +17,9 @@ route of Config(threads=4) with 4 tile columns, also over 2 slots, and
 the sharded deblock at 8 and 10 bits; the LR decision of a chain without
 its fused stage, RAV1E_TPU_LR_FUSE=0, over wiener_lr), and the
 source-edge analysis kernels mode_sad (also sharded), dr_predict (also
-under predict_stack) and build_edges, and put_single_batch over mc_pred
-at 8, 10 and 12 bits.  Without a card they skip.  On a machine without JAX (the tests' conftest imports
+under predict_stack) and build_edges, put_single_batch over mc_pred
+at 8, 10 and 12 bits, mc_pred's residual and two-plane modes, and the
+CDEF decision cdef_decide.  Without a card they skip.  On a machine without JAX (the tests' conftest imports
 it) run them as
 
     python -m pytest --noconftest tests/test_torch_chip.py
@@ -406,6 +407,72 @@ def test_wiener_solve_kernel():
     assert en.all()
 
 
+@pytest.mark.parametrize("hh,ww", [(1079, 1917), (67, 130), (200, 63)])
+def test_wiener_solve_kernel_odd_sizes(hh, ww):
+    """K7 on planes whose sides are not multiples of its 64x64 tiles (and
+    on strided views of larger ones): identical taps and en."""
+    from rav1e_tpu_torch import kernels
+    from rav1e_tpu_torch.ops import lrf
+
+    dev = _card()
+    rng = np.random.default_rng(SEED + hh + ww)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    sizes = ((hh, ww), ((hh + 1) >> 1, (ww + 1) >> 1),
+             ((hh + 1) >> 1, (ww + 1) >> 1))
+    planes = [_content(rng, h + 8, w + 8) for h, w in sizes]
+    ds = [t(r)[:h, :w] for (_s, r), (h, w) in zip(planes, sizes)]
+    ss = [t(s)[:h, :w] for (s, _r), (h, w) in zip(planes, sizes)]
+    before = kernels.COUNTS["wiener_solve"]
+    taps, en = lrf.wiener_solve(ds, ss)
+    assert kernels.COUNTS["wiener_solve"] == before + 1
+    rt, re = lrf.wiener_solve_plain(ds, ss)
+    assert torch.equal(taps, rt) and torch.equal(en, re)
+
+
+@pytest.mark.parametrize("h,w", [(1080, 1920), (272, 200)])
+def test_cdef_decide_kernel(h, w):
+    """K15 on random superblock SSE (ties among the candidates included)
+    and skip maps with all-skip superblocks, at sb_lam 0, a middling
+    value, one that puts the frame pair's cost next to the per-superblock
+    total's, and inf: identical to the plain version."""
+    from rav1e_tpu_torch import kernels
+    from rav1e_tpu_torch.ops import cdef
+
+    dev = _card()
+    rng = np.random.default_rng(SEED + h)
+    nsby, nsbx = -(-h // 64), -(-w // 64)
+    sse = rng.integers(0, 1 << 22, (11, nsby, nsbx)).astype(np.int64)
+    sse[3] = sse[2]  # ties between pairs 2 and 3
+    sse[:, 0, 0] = 7  # every pair ties in the first superblock
+    skip = rng.random(((h // 8) * 2 + 2, (w // 8) * 2 + 3)) < 0.7
+    skip[:16, 16:48] = True  # all-skip superblocks
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    args = (t(sse), t(skip))
+    ref0 = cdef.decide_plain(*args, 0.0, h, w)
+    cost = sse[:8] + sse[8:][list(cdef.PAIR_UV_IDX)]
+    gap = float(cost.sum((1, 2)).min() - cost.min(0).sum())
+    mi = np.ones((nsby * 16, nsbx * 16), bool)
+    mi[: (h // 8) * 2, : (w // 8) * 2] = skip[: (h // 8) * 2, : (w // 8) * 2]
+    n_coded = int((~mi.reshape(nsby, 16, nsbx, 16).all((1, 3))).sum())
+    edge = gap / (84 + 3 * n_coded)  # the rate term meets the gap here
+    for lam in (0.0, 3.5, edge * (1 - 1e-12), edge, edge * (1 + 1e-12),
+                float("inf")):
+        before = kernels.COUNTS["cdef_decide"]
+        got = cdef.decide(*args, lam, h, w)
+        assert kernels.COUNTS["cdef_decide"] == before + 1
+        ref = cdef.decide_plain(*args, lam, h, w)
+        for g, r in zip(got, ref):
+            assert g.dtype == r.dtype and g.shape == r.shape
+            assert torch.equal(g, r), lam
+    assert bool(ref0[0])
+    # a skip view off its 16-byte alignment (the byte-wise reads) and
+    # int32 SSE
+    view = t(np.pad(skip, ((0, 0), (1, 0))))[:, 1:]
+    got = cdef.decide(t(sse.astype(np.int32)), view, 3.5, h, w)
+    ref = cdef.decide_plain(t(sse.astype(np.int32)), t(skip), 3.5, h, w)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+
+
 @pytest.mark.parametrize("unit,hh,ww", [(64, 1080, 1920), (32, 540, 960),
                                         (64, 134, 230), (32, 67, 115)])
 def test_wiener_lr_kernel(unit, hh, ww):
@@ -490,6 +557,51 @@ def test_mc_pred_kernel(n, sub):
     got = mc.mc_block_batch(*args)
     assert kernels.COUNTS["mc_pred"] == before + 1
     assert torch.equal(got, mc.mc_block_batch_plain(*args))
+
+
+@pytest.mark.parametrize("n", [8, 16, 32, 64])
+def test_mc_pred_modes_kernel(n):
+    """K9's residual mode (the race: 6 candidates a block, the source read
+    at the block's position) and its two-plane mode (U and V of the
+    chroma blocks of 2n luma: prediction, residual and both) on 1080p
+    planes, one launch each, identical to the plain version."""
+    from rav1e_tpu_torch import kernels
+    from rav1e_tpu_torch.ops import mc
+
+    dev = _card()
+    rng = np.random.default_rng(SEED + 60 + n)
+    t = lambda a: torch.as_tensor(a, device=dev, dtype=torch.int32)
+    u8 = lambda a: torch.as_tensor(a.astype(np.uint8), device=dev)
+    lim, cands = mc.MV_LIMIT, 6
+    for sub in (0, 1):
+        h, w = 1088 >> sub, 1920 >> sub
+        refs = [_padded_ref(rng, h, w, dev) for _ in range(1 + sub)]
+        srcs = [u8(rng.integers(0, 256, (h, w))) for _ in range(1 + sub)]
+        B = 300
+        px = rng.integers(0, w // n, B) * n
+        py = rng.integers(0, h // n, B) * n
+        px[:4], py[:4] = (0, w - n, 0, w - n), (0, 0, h - n, h - n)
+        mv = rng.integers(-lim, lim + 1, (B * cands, 2))
+        mv[: 4 * cands : cands] = [(-lim, -lim), (-lim, lim), (lim, -lim),
+                                   (lim, lim)]
+        lanes = (t(px), t(py), t(mv[:, 0]), t(mv[:, 1]), n, n, sub, sub)
+        if sub == 0:
+            calls = [dict(src=srcs[0], cands=cands)]
+            ref = refs[0]
+        else:
+            lanes = (t(np.repeat(px, cands)), t(np.repeat(py, cands)),
+                     *lanes[2:])
+            calls = [{}, dict(src=tuple(srcs)), dict(src=tuple(srcs),
+                                                     both=True)]
+            ref = tuple(refs)
+        for k in calls:
+            before = kernels.COUNTS["mc_pred"]
+            got = mc.mc_block_batch(ref, mc.MC_MARGIN, *lanes, **k)
+            assert kernels.COUNTS["mc_pred"] == before + 1
+            want = mc.mc_block_batch_plain(ref, mc.MC_MARGIN, *lanes, **k)
+            for g, r in zip(*(x if isinstance(x, tuple) else (x,)
+                              for x in (got, want))):
+                assert g.shape == r.shape and torch.equal(g, r)
 
 
 @pytest.mark.parametrize("kind", ["shifted", "flat"])
@@ -583,12 +695,18 @@ def test_mixed_gop_on_card_conforms(monkeypatch):
                                          mixed=True)
     # every counter but the speed-5 path's own (cfl, K8's frame mode), the
     # host inter path's (frame_me_map), the host key walk's
-    # (frame_rd_maps) and the tile route's (wavefront_tiles), as
+    # (frame_rd_maps), the tile route's (wavefront_tiles), the unfused LR
+    # route's (wiener_lr_decide) and the analysis kernels', as
     # chip_smoke.py's mixed-GOP phase counts them
     assert all(v > 0 for k, v in kernels.COUNTS.items()
                if k not in ("cfl", "wiener_lr_frame", "me_fullpel_frame",
-                            "frame_rd_maps", "wavefront_tiles")), \
-        kernels.COUNTS
+                            "frame_rd_maps", "wavefront_tiles",
+                            "wiener_lr_decide")
+               + chip_smoke.ANALYSIS_KERNELS), kernels.COUNTS
+    # K9 6 times an inter frame (a level's race and its U + V), K15 once
+    # a frame
+    assert kernels.COUNTS["mc_pred"] == 12, kernels.COUNTS
+    assert kernels.COUNTS["cdef_decide"] == 3, kernels.COUNTS
     assert [fe._chk_wf.has_mv for fe in fes] == [False, True, True]
     summary = chip_smoke.check_output(data, recon, fes, 2)
     assert summary["sbs_rederived_with_inter_blocks"] > 0

@@ -268,6 +268,34 @@ def test_wiener_solve_matches_jax():
     assert en.all()
 
 
+@pytest.mark.parametrize("w", [72, 130])
+def test_wiener_solve_partial_band_matches_jax(w):
+    """K7's plain version on planes of 56 rows (one partial 64-row band
+    of the JAX sums, a partial 64x64 tile of K7's) and 28-row chroma:
+    the same taps as _wiener_solve_dev on the same planes, or 1 apart
+    where the exact coefficient lies within TIE_WINDOW of a tie (the JAX
+    sums are f32)."""
+    rng = np.random.default_rng(SEED + 5 + w)
+    planes = [_content(rng, 56, w), _content(rng, 28, w // 2),
+              _content(rng, 28, w // 2)]
+    ss = [p[0] for p in planes]
+    ds = [p[1] for p in planes]
+    taps, en = tlr.wiener_solve_plain([_t(d) for d in ds],
+                                      [_t(s) for s in ss])
+    for p, (d, s) in enumerate(zip(ds, ss)):
+        v3, h3 = jfc._wiener_solve_dev(jnp, jnp.asarray(d), jnp.asarray(s),
+                                       *d.shape)
+        ref = np.stack([np.asarray(v3), np.asarray(h3)])
+        if p:
+            ref[:, 0] = 0
+        got = taps[2 * p : 2 * p + 2].numpy()
+        coef = _exact_coef(d, s) * 128
+        for k in zip(*np.nonzero(got != ref)):
+            frac = abs(coef[k] - np.floor(coef[k]) - 0.5)
+            assert abs(int(got[k]) - int(ref[k])) == 1 and frac < TIE_WINDOW
+        assert bool(en[p]) == bool(np.abs(got).sum() > 0)
+
+
 # -- K8 wiener_lr ----------------------------------------------------------------
 
 
