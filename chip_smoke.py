@@ -19,8 +19,10 @@
    apply), wiener_lr (also with every unit forced to take Wiener),
    wiener_solve (taps and en; a tap 1 apart would have to sit within
    1e-9 of a .5 tie) and cdef_decide must be identical (every call of
-   wiener_solve, cdef_decide and, where they run, mc_pred's calls too:
-   check_every, on every path that keeps a Capture);
+   wiener_solve, cdef_decide, cdef_filter and, where they run, mc_pred's
+   and cfl's calls (its fit and its decide mode) too: check_every, on
+   every path that keeps a Capture, after the path's counted encode, the
+   kernels launched again on the kept inputs);
    fwd_txq's levels and dequantised values identical except where the
    exact coefficient lies within the fp32 error bound of a .5 rounding
    tie, and such coefficients may be at most FDCT_TIE_SHARE of them.
@@ -41,8 +43,10 @@
    calls are held against their plain versions and timed on a line of
    their own (k1_k3_modes), as they are, untimed, on phases 8, 9, 10, 12
    and 13.  wiener_solve, cdef_decide (its entry also with the plain
-   decision's device time by torch.profiler) and, on their paths,
-   mc_pred and cfl carry device_ms and host_ms beside ms.
+   decision's device time by torch.profiler), deblock, cdef_dir,
+   cdef_filter (its search and apply each on a line of their own,
+   cdef_filter_calls), wiener_lr and, on their paths, mc_pred, me_fullpel
+   and cfl carry device_ms and host_ms beside ms.
 5. Checks the output: with libdav1d present the stream decodes to the
    encoder's recon; in every case 16 sampled superblocks a frame re-derive
    from their records with the numpy oracles onto the pre-filter recon,
@@ -61,7 +65,7 @@
    inside it, CDEF and LR); with --profile also under torch.profiler (the
    card's busy time by kernel; minutes).
 8. Drives the mixed-GOP path: bench.py's mixed configuration (its GOP
-   cut to MIXED_FRAMES frames of 1920x1080: 1 key + 3 inter,
+   cut to MIXED_FRAMES frames of 1920x1080: 1 key + 2 inter,
    max_key_frame_interval 240, low latency, speed-6 defaults), with the
    counts set to 0 before it.  All inter frames must take the inter
    wavefront, every kernel
@@ -85,9 +89,13 @@
    LR search), SPEED5_FRAMES frames, with the counts set to 0 before it:
    K1-K3, K5, K6, K8 in frame mode and K11 cfl must launch (K15 once a
    frame), K4 deblock and
-   K7 wiener_solve must not. Holds K11 and K8's frame mode (stripes 64 and
-   32) against their plain versions, timed beside their bounds, and times
-   the CDEF search outside the chain; re-derives sampled superblocks and
+   K7 wiener_solve must not. Holds K11 (its fit and its decide mode, the
+   CFL-vs-DC choice) and K8's frame mode (stripes 64 and 32) against their
+   plain versions, timed beside their bounds; counts with torch.profiler
+   the device operations one call of the wavefront's CFL arm (the largest)
+   issues, at most CFL_ARM_MAX_OPS, and those of the leaf's chroma around
+   it, and times the arm (cfl_arm); times the CDEF search outside the
+   chain; re-derives sampled superblocks and
    FILTER_FRAMES frames through deblock_np, cdef_np and lrf_np / sgr_np
    with the coded parameters, and counts the restoration units by kind.
    Then CFL_FRAMES frames of content whose chroma follows its luma (the
@@ -217,6 +225,11 @@
    thinning must launch); the P frames' superblocks re-derive and the
    last one's numpy filter chain gives its output (with --save-stream,
    writes DIR/seg.ivf and DIR/seg_recon.json).
+17. Holds K6 against its plain version on seeded K6_EDGE_SIZE planes
+   (1080x1000: partial superblocks on the bottom row and the right
+   column) at 8, 10 and 12 bits with random, all-inactive and all-active
+   block maps (search and apply), every candidate pair applied to every
+   superblock, and cdef_frame_device on the card against its CPU route.
 
 Before the kernels line it prints the wall seconds of phases 1-7
 together and of each later phase (phase_wall_s), and nvcc's ptxas lines
@@ -239,19 +252,19 @@ from pathlib import Path
 # depth cuts that keep the script inside half its time limit (PERF.md
 # section 4): every path keeps its configuration and frame size, and runs
 # fewer frames
-W, H, NFRAMES = 1920, 1080, 4  # key frames of the main path
-MIXED_FRAMES = 4  # bench.py's mixed GOP cut to 1 key + 3 inter
+W, H, NFRAMES = 1920, 1080, 3  # key frames of the main path
+MIXED_FRAMES = 3  # bench.py's mixed GOP cut to 1 key + 2 inter
 MIXED_TIMED = 2  # frames of the mixed GOP's timed second encode
 SPEED5_FRAMES = 1  # key frames of the speed-5 path (phase 9)
 SPEED5_TIMED = 1  # frames of the speed-5 path's timed second encode
 DEFAULT_FRAMES = 5  # EncoderConfig()'s pyramid: 1 key + one sub-GOP of 4
 #                     (the first ALTREF on the inter wavefront, 3 host
 #                     frames with LAST2 and compound references)
-DEFAULT_FILTER_FRAMES = 2  # host frames re-derived through the numpy filters
+DEFAULT_FILTER_FRAMES = 1  # host frames re-derived through the numpy filters
 CFL_FRAMES = 1  # speed-5 key frames of content whose chroma follows luma
 GOP5_FRAMES = 2  # the speed-5 GOP: 1 key + 1 inter
 KEY_TIMED = 2  # frames of the keyframe path's timed second encode
-BREAKDOWN_FRAMES = 2  # frames of the keyframe path's stage breakdown
+BREAKDOWN_FRAMES = 1  # frames of the keyframe path's stage breakdown
 SB_SAMPLES = 16
 FILTER_FRAMES = 1  # frames whose whole filter chain is re-derived in numpy
 INTER_FILTER_FRAMES = 1  # inter frames of the mixed GOP re-derived so
@@ -723,6 +736,18 @@ def _cfl_work(a, k):
             dc.numel() // 2 * CFL_OPS)
 
 
+def _cfl_decide_work(a, k):
+    """Bytes and operations of one K11 decide launch: the CFL residual and
+    its inverse read, then for each block and plane the cheaper side's
+    blocks (the CFL prediction and levels: DC's side reads three); the
+    chosen blocks written; the per-plane costs, rates and alphas, lam and
+    the mode read, rates, alphas and the uv mode written; the SSE's 3
+    operations a sample."""
+    rc = a[0]
+    return (rc.numel() * 4 * 7 + rc.shape[0] * (2 * 5 * 4 + 4 + 8 + 8),
+            rc.numel() * SSE_OPS)
+
+
 def _decide_work(a, k):
     """Bytes and operations of K15 (ops/cdef.py decide): the 11 candidates'
     superblock SSE (int64) and the per-mi skip map read once, use_sb,
@@ -814,6 +839,7 @@ WORK = {
     "wiener_lr_frame": _wiener_frame_work,
     "wiener_lr_frame_32": _wiener_frame_work,
     "cfl": _cfl_work,
+    "cfl_decide": _cfl_decide_work,
 }
 
 
@@ -896,13 +922,44 @@ def _deblock_pass_work(a) -> tuple:
             img.numel() * 100 / 4)
 
 
-# functions whose every call Capture keeps, for check_every: K9, K15, K7;
-# of RELAUNCH only the inputs
-EVERY_CALL = ("mc_block_batch", "decide", "wiener_solve")
-RELAUNCH = ("mc_block_batch",)
+# functions whose every call Capture keeps, for check_every: K9, K15, K7,
+# K6 and K11's two modes; of RELAUNCH only the inputs
+EVERY_CALL = ("mc_block_batch", "decide", "wiener_solve", "cdef_filter",
+              "cfl", "cfl_decide")
+RELAUNCH = ("mc_block_batch", "cdef_filter", "cfl", "cfl_decide")
+# K11's modes read views of the leaf's candidate stacks (K1's DC
+# prediction, K2's levels, K3's inverse, the DC SSE and rates): their
+# kept calls hold copies of the views (_compact), not the stacks, which
+# would stay allocated through the timed encodes
+COMPACT = ("cfl", "cfl_decide")
 # kernels whose ptxas report must show no stack frame and no spills
 NO_STACK = ("intra_pred", "inv_txfm", "mc_pred", "wiener_solve",
             "cdef_decide")
+
+
+def _clone(v):
+    """A copy of v with its broadcast (zero-stride) dimensions kept, so
+    that a kept call reads its inputs as the pass's did."""
+    import torch
+
+    if isinstance(v, (list, tuple)):
+        return type(v)(_clone(x) for x in v)
+    if not torch.is_tensor(v):
+        return v
+    one = tuple(slice(0, 1) if st == 0 else slice(None) for st in v.stride())
+    return v[one].clone().expand(v.shape)
+
+
+def _compact(v):
+    """v, or a copy of it (_clone) where v is a tensor whose storage holds
+    more than its own elements (a view of a larger tensor)."""
+    import math
+
+    if not hasattr(v, "untyped_storage"):
+        return v
+    own = math.prod(n for n, st in zip(v.shape, v.stride()) if st != 0)
+    return _clone(v) if v.untyped_storage().nbytes() > own * v.element_size() \
+        else v
 
 
 class Capture:
@@ -931,6 +988,7 @@ class Capture:
         self.shapes = shapes
         self.bounds = {}
         self.every = {name: [] for name in keep + EVERY_CALL}
+        self.kept_bytes = Counter()  # storage held by COMPACT's kept calls
         self._later = []  # (stage, work, a, k) of EVERY_CALL's calls
         # the plain decision must not run while a card is present
         orig_plain = cdef.decide_plain
@@ -970,6 +1028,8 @@ class Capture:
                                else "wiener_lr_frame_32"),
                  lambda a, k: a[4] * a[5]),
                 (intra, "cfl", "cfl", lambda a, k: a[1].numel()),
+                (intra, "cfl_decide", "cfl_decide",
+                 lambda a, k: a[0].numel()),
                 (intra, "intra_pred",
                  lambda a, k: {"band_maps": "band_intra_pred",
                                "rd_maps": "frame_rd_maps_intra_pred"}.get(
@@ -1012,17 +1072,7 @@ class Capture:
         import torch
 
         orig = getattr(mod, name)
-
-        def clone(v):
-            """A copy of v with its broadcast (zero-stride) dimensions
-            kept, so that a kept call reads its inputs as the pass's did."""
-            if isinstance(v, (list, tuple)):
-                return type(v)(clone(x) for x in v)
-            if not torch.is_tensor(v):
-                return v
-            one = tuple(slice(0, 1) if st == 0 else slice(None)
-                        for st in v.stride())
-            return v[one].clone().expand(v.shape)
+        clone = _clone
 
         def spy(*a, **k):
             n = size(a, k)
@@ -1054,13 +1104,20 @@ class Capture:
         self._undo.append((mod, name, orig))
 
     def _keep(self, name, orig, a, k):
+        if name in COMPACT:
+            kept = tuple(_compact(v) for v in a)
         out = orig(*a, **k)
         if name in self.every:
             # K9's outputs (~70 MB a race) are not held: holding them would
             # keep the allocator from reusing their memory inside the timed
             # stages; check_every launches the kernel again on the inputs
             self.every[name].append(
-                (a, k, None if name in RELAUNCH else out))
+                (kept if name in COMPACT else a, k,
+                 None if name in RELAUNCH else out))
+            if name in COMPACT:
+                self.kept_bytes[name] += sum(
+                    v.untyped_storage().nbytes() for v in kept
+                    if hasattr(v, "untyped_storage"))
         return out
 
     def restore(self):
@@ -1284,24 +1341,83 @@ def check_decide_launches(counts, cap, frames: int, path: str) -> None:
 
 
 def check_every(cap, path: str, card: str) -> dict:
-    """Every call of K9, K15 and K7 kept on this path (Capture's
-    EVERY_CALL) held against its plain version on the same card tensors
-    (K9 launched again on its kept inputs): identical, or the path fails.
-    Prints and returns the calls and the largest difference of each."""
-    from rav1e_tpu_torch.ops import cdef, lrf, mc
+    """Every call of K9, K15, K7, K6 and K11 (fit and decide) kept on
+    this path (Capture's EVERY_CALL) held against its plain version on the
+    same card tensors (K9, K6 and K11 launched again on their kept
+    inputs): identical, or the path fails.  Prints and returns the calls
+    and the largest difference of each."""
+    from rav1e_tpu_torch.ops import cdef, intra, lrf, mc
 
     plain = {"mc_block_batch": (mc.mc_block_batch, mc.mc_block_batch_plain),
              "decide": (cdef.decide, cdef.decide_plain),
-             "wiener_solve": (lrf.wiener_solve, lrf.wiener_solve_plain)}
+             "wiener_solve": (lrf.wiener_solve, lrf.wiener_solve_plain),
+             "cdef_filter": (cdef.cdef_filter, cdef.cdef_filter_plain),
+             "cfl": (intra.cfl, intra.cfl_plain),
+             "cfl_decide": (intra.cfl_decide, intra.cfl_decide_plain)}
     out = {}
     for name, (kern, fn) in plain.items():
         calls = cap.every.get(name, [])
-        err = max((_same(kern(*a, **k) if got is None else got,
-                         fn(*a, **k), f"{name} ({path})")
-                   for a, k, got in calls), default=0)
+        if name in BATCHED:
+            err = _same_batched(calls, kern, fn, f"{name} ({path})")
+        else:
+            err = max((_same(kern(*a, **k) if got is None else got,
+                             fn(*a, **k), f"{name} ({path})")
+                       for a, k, got in calls), default=0)
         out[name] = {"calls": len(calls), "max_abs_diff": err}
+        if name in COMPACT:
+            out[name]["kept_bytes"] = cap.kept_bytes[name]
     print(json.dumps({"every_call": out, "path": path, "card": card}))
     return out
+
+
+# K11's modes run thousands of small calls a frame at speeds 5 and 3; their
+# plain versions treat every block on its own, so check_every runs each
+# plain version once over all kept calls of a shape (and of one pass's
+# rate tables) stacked along the blocks
+BATCHED = ("cfl", "cfl_decide")
+
+
+def _stacks(args):
+    """Groups of calls' argument tuples whose tensors stack along the
+    blocks (one shape; non-tensor arguments and tuples of tables of one
+    storage in common): [(the group's argument tuples, the arguments
+    stacked)]."""
+    import torch
+
+    def key(a):
+        return tuple(
+            (tuple(v.shape[1:]) if v.shape[0] == a[0].shape[0]
+             else ("shared", v.data_ptr())) if torch.is_tensor(v) else
+            tuple(t.data_ptr() for t in v) if isinstance(v, tuple) else v
+            for v in a)
+
+    groups = {}
+    for a in args:
+        groups.setdefault(key(a), []).append(a)
+    out = []
+    for group in groups.values():
+        first = group[0]
+        out.append((group, [
+            torch.cat([a[i] for a in group])
+            if torch.is_tensor(v) and v.shape[0] == first[0].shape[0] else v
+            for i, v in enumerate(first)]))
+    return out
+
+
+def _same_batched(calls, kern, fn, name) -> int:
+    """The kernel launched again on each kept call, the plain version once
+    over each group of calls that stack (_stacks), and the stacked
+    results compared (_same)."""
+    import torch
+
+    if any(k for _a, k, _got in calls):
+        raise ValueError(f"{name}: keyword arguments are not batched")
+    err = 0
+    for group, cat in _stacks([a for a, _k, _got in calls]):
+        got = [kern(*a) for a in group]
+        got = tuple(torch.cat([g[j] for g in got]) for j in range(len(got[0])))
+        err = max(err, _same(got, fn(*cat), name))
+    return err
 
 
 def check_kernels(calls, counts, frames_per_run):
@@ -1369,12 +1485,13 @@ def check_kernels(calls, counts, frames_per_run):
         raise RuntimeError(f"deblock differs from its plain version: {err}")
     if torch.equal(got, img.to(torch.int32)):
         raise RuntimeError("deblock filtered nothing")
+    r = timed(lambda: deblock.deblock_pass(*a, **k))
     entry("deblock", "rav1e_tpu_torch/csrc/deblock.cu",
-          "rav1e_tpu/ops/deblock_jax.py:125", err,
-          cuda_ms(lambda: deblock.deblock_pass(*a, **k)),
+          "rav1e_tpu/ops/deblock_jax.py:125", err, r["ms"],
           cuda_ms(lambda: deblock.deblock_pass_plain(
               img, lim, blim, thr, 8, pidx, tx, bp, sk, s_al, s_ac), reps=5),
-          WORK["deblock"](a, k))
+          WORK["deblock"](a, k), device_ms=r["device_ms"],
+          host_ms=r["host_ms"])
     check_filter_kernels(calls, entry)
     return out
 
@@ -1420,6 +1537,25 @@ def wiener_ties(ds, ss, taps, ref):
     return int(diff.sum())
 
 
+def k6_times(line: str, s_a, p_a) -> dict:
+    """K6's search call s_a and apply call p_a timed each (ms, device_ms,
+    host_ms) beside its bound, printed on a line of its own; returns the
+    two calls' sums and their summed work."""
+    from rav1e_tpu_torch.ops import cdef
+
+    out, work = {}, []
+    for mode, a in (("search", s_a), ("apply", p_a)):
+        w_ = WORK["cdef_filter"](a, {})
+        work.append(w_)
+        out[mode] = dict(timed(lambda: cdef.cdef_filter(*a)),
+                         bound_ms=bound_ms(*w_), size=list(a[0].shape),
+                         bd=a[12] if len(a) > 12 else 8)
+    print(json.dumps({line: out}))
+    return dict({k: out["search"][k] + out["apply"][k]
+                 for k in ("ms", "device_ms", "host_ms")},
+                work=(work[0][0] + work[1][0], work[0][1] + work[1][1]))
+
+
 def check_filter_kernels(calls, entry):
     """K5-K8 (cdef_dir, cdef_filter, wiener_solve, wiener_lr) and K15
     (cdef_decide) on the main path's largest calls: parity with the plain
@@ -1432,11 +1568,12 @@ def check_filter_kernels(calls, entry):
     # K5 cdef_dir on the deblocked luma
     _, a, _k = calls["cdef_dir"]
     err = _same(cdef.cdef_dir(*a), cdef.cdef_dir_plain(*a), "cdef_dir")
+    r = timed(lambda: cdef.cdef_dir(*a))
     entry("cdef_dir", "rav1e_tpu_torch/csrc/cdef_dir.cu",
-          "rav1e_tpu/ops/cdef_jax.py:43", err,
-          cuda_ms(lambda: cdef.cdef_dir(*a)),
+          "rav1e_tpu/ops/cdef_jax.py:43", err, r["ms"],
           cuda_ms(lambda: cdef.cdef_dir_plain(*a), reps=5),
-          WORK["cdef_dir"](a, {}))
+          WORK["cdef_dir"](a, {}), device_ms=r["device_ms"],
+          host_ms=r["host_ms"])
 
     # K6 cdef_filter: the search (8 luma + 3 chroma candidates' superblock
     # SSE) and the apply of the chosen pairs, the frame's two launches
@@ -1446,14 +1583,12 @@ def check_filter_kernels(calls, entry):
                     "cdef_filter (search)"),
               _same(cdef.cdef_filter(*p_a), cdef.cdef_filter_plain(*p_a),
                     "cdef_filter (apply)"))
-    ws, wa = WORK["cdef_filter"](s_a, {}), WORK["cdef_filter"](p_a, {})
+    r = k6_times("cdef_filter_calls", s_a, p_a)
     entry("cdef_filter", "rav1e_tpu_torch/csrc/cdef_filter.cu",
-          "rav1e_tpu/ops/cdef_jax.py:84", err,
-          cuda_ms(lambda: cdef.cdef_filter(*s_a))
-          + cuda_ms(lambda: cdef.cdef_filter(*p_a)),
+          "rav1e_tpu/ops/cdef_jax.py:84", err, r["ms"],
           cuda_ms(lambda: cdef.cdef_filter_plain(*s_a), reps=3)
           + cuda_ms(lambda: cdef.cdef_filter_plain(*p_a), reps=3),
-          (ws[0] + wa[0], ws[1] + wa[1]))
+          r["work"], device_ms=r["device_ms"], host_ms=r["host_ms"])
 
     # K7 wiener_solve over the three planes
     _, a, _k = calls["wiener_solve"]
@@ -1487,11 +1622,12 @@ def check_filter_kernels(calls, entry):
             got[0], a[0][:hh, :ww].to(torch.int32)):
         raise RuntimeError("wiener_lr with every unit forced to Wiener did "
                            "not restore the plane")
+    r = timed(lambda: lrf.wiener_lr(*a))
     entry("wiener_lr", "rav1e_tpu_torch/csrc/wiener_lr.cu",
-          "rav1e_tpu/ops/lrf_jax.py:77", err,
-          cuda_ms(lambda: lrf.wiener_lr(*a)),
+          "rav1e_tpu/ops/lrf_jax.py:77", err, r["ms"],
           cuda_ms(lambda: lrf.wiener_lr_plain(*a), reps=5),
-          WORK["wiener_lr"](a, {}))
+          WORK["wiener_lr"](a, {}), device_ms=r["device_ms"],
+          host_ms=r["host_ms"])
 
     # K15 cdef_decide on the path's largest call (every call: check_every);
     # the plain version's device time by the profiler (a graph cannot
@@ -1555,11 +1691,12 @@ def check_inter_kernels(calls, counts, frames_per_run):
     _, a, k = calls["me_fullpel"]
     err = _same(dp.me_fullpel(*a, **k), dp.me_fullpel_plain(*a, **k),
                 "me_fullpel")
+    r = timed(lambda: dp.me_fullpel(*a, **k))
     entry("me_fullpel", "rav1e_tpu_torch/csrc/me_fullpel.cu",
-          "rav1e_tpu/models/device_pipeline.py:290", err,
-          cuda_ms(lambda: dp.me_fullpel(*a, **k)),
+          "rav1e_tpu/models/device_pipeline.py:290", err, r["ms"],
           cuda_ms(lambda: dp.me_fullpel_plain(*a, **k), reps=3),
-          WORK["me_fullpel"](a, k))
+          WORK["me_fullpel"](a, k), device_ms=r["device_ms"],
+          host_ms=r["host_ms"])
 
     _, a, k = calls["fwd_txq_thin"]
     r = fwd_entry(entry, "fwd_txq_thin", "rav1e_tpu/models/wavefront.py:416",
@@ -1818,7 +1955,7 @@ def mixed_gop(card: str) -> list:
     # path's (phase 10), frame_rd_maps (phase 11) and the tile route's
     # (phase 13)
     missing = [k for k, v in counts.items()
-               if v == 0 and k not in ("cfl", "wiener_lr_frame",
+               if v == 0 and k not in ("cfl", "cfl_decide", "wiener_lr_frame",
                                        "me_fullpel_frame", "frame_rd_maps",
                                        "wavefront_tiles", "wiener_lr_decide")
                + ANALYSIS_KERNELS]
@@ -1857,7 +1994,6 @@ def mixed_gop(card: str) -> list:
         k: v / MIXED_FRAMES for k, v in cap.bounds.items()}, "card": card}))
     results = check_inter_kernels(cap.calls, counts, MIXED_FRAMES)
     check_modes(cap.calls, "mixed_gop", card)
-    check_every(cap, "mixed_gop", card)
     t1 = time.perf_counter()
     summary = check_output(data, recon, fes, INTER_FILTER_FRAMES)
     print(json.dumps({"mixed_output": summary, "bytes": sum(map(len, data)),
@@ -1872,13 +2008,14 @@ def mixed_gop(card: str) -> list:
         "frames": MIXED_TIMED, "size": f"{W}x{H}", "seconds": t_enc,
         "fps": MIXED_TIMED / t_enc, "stages_s": encode.stages,
         "card": card}}))
+    check_every(cap, "mixed_gop", card)
     return results
 
 
 # speed 5 on the host filter path: launched, and not launched (the host
 # deblocks; the frame taps are the host's tap solve, K8 only filters)
 SPEED5_LAUNCHED = ("intra_pred", "fwd_txq", "inv_txfm", "cdef_dir",
-                   "cdef_filter", "wiener_lr_frame", "cfl")
+                   "cdef_filter", "wiener_lr_frame", "cfl", "cfl_decide")
 SPEED5_IDLE = ("deblock", "wiener_solve")
 # the default configuration: the key frame and the first ALTREF take the
 # passes and the chain (K1-K10), the host frames K10 through frame_me_map,
@@ -1907,6 +2044,17 @@ def check_speed5_kernels(calls, counts, frames_per_run):
           "rav1e_tpu/ops/intra_jax.py:317", err, r["ms"],
           cuda_ms(lambda: intra.cfl_plain(*a)), WORK["cfl"](a, {}),
           device_ms=r["device_ms"], host_ms=r["host_ms"])
+    # K11's decide mode (row 14c) on the path's largest call
+    _, a, _k = calls["cfl_decide"]
+    err = _same(intra.cfl_decide(*a), intra.cfl_decide_plain(*a),
+                "cfl_decide")
+    r = timed(lambda: intra.cfl_decide(*a))
+    entry("cfl_decide", "rav1e_tpu_torch/csrc/cfl.cu",
+          "rav1e_tpu/models/wavefront.py:733", err, r["ms"],
+          cuda_ms(lambda: intra.cfl_decide_plain(*a)),
+          WORK["cfl_decide"](a, {}), device_ms=r["device_ms"],
+          host_ms=r["host_ms"], blocks=int(a[0].shape[0]),
+          n=int(a[0].shape[-1]) * 2)
     errs = {}
     for key in ("wiener_lr_frame", "wiener_lr_frame_32"):
         _, a, _k = calls[key]
@@ -2039,6 +2187,81 @@ def lr_units(fes) -> dict:
     return dict(c)
 
 
+class ArmCapture:
+    """Keeps the largest call (by its luma samples) of the wavefront's CFL
+    arm (WavefrontPass._cfl) and of the leaf's chroma (chroma, which
+    calls the arm) while open: (the pass, the arguments), by reference."""
+
+    def __init__(self):
+        from rav1e_tpu_torch.models import wavefront
+
+        self.calls = {}
+        self._undo = []
+        for name, luma in (("_cfl", 0), ("chroma", 14)):
+            orig = getattr(wavefront.WavefrontPass, name)
+
+            def run(this, *a, _orig=orig, _name=name, _luma=luma):
+                n = a[_luma].numel()
+                if _name not in self.calls or n > self.calls[_name][0]:
+                    self.calls[_name] = (n, this, a)
+                return _orig(this, *a)
+
+            setattr(wavefront.WavefrontPass, name, run)
+            self._undo.append((name, orig))
+
+    def restore(self):
+        from rav1e_tpu_torch.models import wavefront
+
+        for name, orig in self._undo:
+            setattr(wavefront.WavefrontPass, name, orig)
+
+
+def device_ops(fn) -> dict:
+    """The device operations one call of fn issues, by torch.profiler:
+    kernels (ours and PyTorch's), memsets and copies, by name.  The call
+    is profiled twice and the second session read: a process's first
+    session has listed PyTorch's kernels but not those loaded through
+    ctypes."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    names = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            names[e.key[:60]] = names.get(e.key[:60], 0) + e.count
+    return {"device_ops": sum(names.values()), "by_name": names}
+
+
+CFL_ARM_MAX_OPS = 5  # K11's fit, K2, K3, K11's decision and one more
+
+
+def cfl_arm(arm, card: str, limit=None) -> dict:
+    """The CFL arm's and the leaf chroma's device operations a call
+    (device_ops) and the arm's times (ms, device_ms, host_ms), on the
+    largest call of each the path made; with limit, the arm must issue
+    at most that many."""
+    _, this, a = arm.calls["_cfl"]
+    _, this_c, a_c = arm.calls["chroma"]
+    call = lambda: this._cfl(*a)
+    ops = device_ops(call)
+    out = {"blocks": int(a[0].shape[0]), "n": int(a[0].shape[-1]),
+           "arm": dict(ops, **timed(call)),
+           "chroma": device_ops(lambda: this_c.chroma(*a_c)), "card": card}
+    print(json.dumps({"cfl_arm": out}))
+    if limit is not None and ops["device_ops"] > limit:
+        raise RuntimeError(f"the CFL arm issues {ops['device_ops']} device "
+                           f"operations a call, more than {limit}")
+    return out
+
+
 def speed5(card: str) -> list:
     """The speed-5 path (phase 9 of the module docstring).  Returns the
     kernels JSON entries of K11 and K8's frame mode."""
@@ -2049,6 +2272,7 @@ def speed5(card: str) -> list:
 
     frames = make_frames(W, H, SPEED5_FRAMES)
     cap = Capture()
+    arm = ArmCapture()
     kernels.reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2056,6 +2280,7 @@ def speed5(card: str) -> list:
         data, recon, fes = encode(frames, check=True, speed=5)
         torch.cuda.synchronize()
     finally:
+        arm.restore()
         cap.restore()
     t_first = time.perf_counter() - t0
     counts = dict(kernels.COUNTS)
@@ -2078,8 +2303,8 @@ def speed5(card: str) -> list:
     print(json.dumps({"speed5_bound_ms_per_frame": {
         k: v / SPEED5_FRAMES for k, v in cap.bounds.items()}, "card": card}))
     results = check_speed5_kernels(cap.calls, counts, SPEED5_FRAMES)
+    cfl_arm(arm, card, CFL_ARM_MAX_OPS)
     check_modes(cap.calls, "speed5", card)
-    check_every(cap, "speed5", card)
     print(json.dumps({"speed5_cdef_route": time_cdef_route(cap.calls),
                       "card": card}))
     t1 = time.perf_counter()
@@ -2109,6 +2334,7 @@ def speed5(card: str) -> list:
     print(json.dumps({"speed5_encode": {
         "frames": SPEED5_TIMED, "size": f"{W}x{H}", "seconds": t_enc,
         "fps": SPEED5_TIMED / t_enc, "stages_s": encode.stages, "card": card}}))
+    check_every(cap, "speed5", card)
 
     # the small-frame route: the sampled host CDEF search and
     # cdef_frame_device (coded area under 640x480)
@@ -2280,7 +2506,7 @@ HBD_LAUNCHED = ("intra_pred", "fwd_txq", "cdef_dir", "cdef_filter",
                 "me_fullpel_frame", "wiener_lr_frame", "frame_rd_maps")
 # the wavefront (and its ME and inverse transforms), the chain, CFL
 HBD_IDLE = ("deblock", "wiener_solve", "wiener_lr", "mc_pred", "cfl",
-            "me_fullpel", "fwd_txq_thin", "inv_txfm")
+            "cfl_decide", "me_fullpel", "fwd_txq_thin", "inv_txfm")
 
 
 @contextlib.contextmanager
@@ -2398,9 +2624,10 @@ def check_rd_maps(calls, rd_args, counts):
 
 
 def check_hbd_calls(every, counts, bd):
-    """Every K5, K6 (search and apply), K8 frame-mode and K10 call of the
-    path (`every`, Capture.every) identical to its plain version on the same
-    card tensors, each at bd; the largest of each timed beside its plain
+    """Every K5, K8 frame-mode and K10 call of the path (`every`,
+    Capture.every) identical to its plain version on the same card
+    tensors, each at bd, and every K6 call (search and apply; its parity
+    is check_every's) at bd; the largest of each timed beside its plain
     version and its bound.  Returns the kernels JSON entries."""
     import torch
 
@@ -2417,8 +2644,6 @@ def check_hbd_calls(every, counts, bd):
     for a, k, o in every["cdef_filter"]:
         if a[12] != bd:
             raise RuntimeError(f"cdef_filter ran at {a[12]} bits")
-        _same(o, cdef.cdef_filter_plain(*a),
-              f"cdef_filter at {bd} bits, mode {a[10]}")
     for a, k, o in every["wiener_filter_frame"]:
         if a[6] != bd:
             raise RuntimeError(f"wiener_lr frame mode ran at {a[6]} bits")
@@ -2444,15 +2669,13 @@ def check_hbd_calls(every, counts, bd):
     # cdef_frame_device's route, under 640x480)
     k6 = [max((c[0] for c in every["cdef_filter"] if c[0][10] == mode),
               key=lambda a: a[0].numel())
-          for mode in (cdef.SEARCH, cdef.APPLY)
-          if any(c[0][10] == mode for c in every["cdef_filter"])]
-    work = [WORK["cdef_filter"](a, {}) for a in k6]
+          for mode in (cdef.SEARCH, cdef.APPLY)]
+    r = k6_times("cdef_filter_hbd_calls", *k6)
     entry("cdef_filter_hbd", "rav1e_tpu_torch/csrc/cdef_filter.cu",
-          "rav1e_tpu/ops/cdef_jax.py:234", 0,
-          sum(cuda_ms(lambda a=a: cdef.cdef_filter(*a)) for a in k6),
+          "rav1e_tpu/ops/cdef_jax.py:234", 0, r["ms"],
           sum(cuda_ms(lambda a=a: cdef.cdef_filter_plain(*a), reps=3)
-              for a in k6),
-          (sum(w_[0] for w_ in work), sum(w_[1] for w_ in work)))
+              for a in k6), r["work"], device_ms=r["device_ms"],
+          host_ms=r["host_ms"])
     w_a = big("wiener_filter_frame")
     entry("wiener_lr_frame_hbd", "rav1e_tpu_torch/csrc/wiener_lr.cu",
           "rav1e_tpu/ops/lrf_jax.py:43", 0,
@@ -2930,7 +3153,7 @@ TILE_KERNELS = ("intra_pred", "fwd_txq", "inv_txfm")
 # chain mode stay idle (the route has no device-resident recon)
 TILE_LAUNCHED = TILE_KERNELS + ("cdef_dir", "cdef_filter")
 TILE_IDLE = ("deblock", "wiener_solve", "wiener_lr", "mc_pred",
-             "me_fullpel", "cfl", "frame_rd_maps")
+             "me_fullpel", "cfl", "cfl_decide", "frame_rd_maps")
 TILE_EDGE_SAMPLES = 4  # rows sampled on each side of each tile boundary
 RESUME_SIZE, RESUME_FRAMES = (320, 240), 3
 
@@ -3186,6 +3409,73 @@ def flat_plane(rng, h: int, w: int, bd: int):
     step = 1 << (bd - 8)
     return np.clip(base + step * rng.integers(-1, 2, (h, w)), 0,
                    top - 1).astype(np.int32)
+
+
+K6_EDGE_SIZE = (1080, 1000)  # height 56 mod 64, width 40 mod 64
+K6_EDGE_BDS = (8, 10, 12)
+K6_EDGE_STRENGTHS = (2, 2, 1, 0)  # y pri, y sec, uv pri, uv sec: two
+#                                   applies (no table pair joins them)
+
+
+def k6_edges(card: str, device: str = "cuda", size=K6_EDGE_SIZE) -> list:
+    """Phase 17: K6 against cdef_filter_plain on seeded planes of `size`
+    (partial superblocks on the bottom row and the right column) at 8, 10
+    and 12 bits, each with a random, an all-inactive and an all-active
+    block map: the search's SSE and the apply of random candidate pairs
+    identical; the apply of each candidate pair for every superblock (the
+    fixed strengths) identical; and cdef_frame_device with
+    K6_EDGE_STRENGTHS on the card equal to the same call on the CPU (the
+    plain versions).  Prints what it checked; returns no kernels entry
+    (K6's is the main path's)."""
+    import numpy as np
+    import torch
+
+    from rav1e_tpu_torch.ops import cdef
+
+    rng = np.random.default_rng(20261018)
+    h, w = size
+    nsb = (-(-h // 64), -(-w // 64))
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
+    out = {"size": [h, w], "checked": 0, "card": card}
+    for bd in K6_EDGE_BDS:
+        dims = ((h, w), (h // 2, w // 2), (h // 2, w // 2))
+        src = [flat_plane(rng, hh, ww, bd) for hh, ww in dims]
+        rec = [np.clip(p + rng.normal(0, 3 << (bd - 8), p.shape).round(), 0,
+                       (1 << bd) - 1).astype(np.int32) for p in src]
+        dirs, var = cdef.cdef_dir(t(rec[0]), bd)
+        damping = 4 + bd - 8
+        for kind, act in (
+                ("random", rng.random((h // 8, w // 8)) < 0.7),
+                ("none", np.zeros((h // 8, w // 8), bool)),
+                ("all", np.ones((h // 8, w // 8), bool))):
+            args = (*map(t, rec), *map(t, src), dirs, var, t(act), damping)
+            what = f"cdef_filter {bd}-bit {h}x{w}, {kind} blocks"
+            _same(cdef.cdef_filter(*args, cdef.SEARCH, None, bd),
+                  cdef.cdef_filter_plain(*args, cdef.SEARCH, None, bd),
+                  what + " (search)")
+            idx = t(rng.integers(0, 8, nsb).astype(np.int32))
+            _same(cdef.cdef_filter(*args, cdef.APPLY, idx, bd),
+                  cdef.cdef_filter_plain(*args, cdef.APPLY, idx, bd),
+                  what + " (apply)")
+            out["checked"] += 2
+        for k in range(8):
+            idx = t(np.full(nsb, k, np.int32))
+            _same(cdef.cdef_filter(*args, cdef.APPLY, idx, bd),
+                  cdef.cdef_filter_plain(*args, cdef.APPLY, idx, bd),
+                  f"cdef_filter {bd}-bit, pair {k} for every superblock")
+            out["checked"] += 1
+        skip = rng.random((h // 4, w // 4)) < 0.3
+        got = [[p.copy() for p in rec] for _ in range(2)]
+        for planes, dev in zip(got, (device, "cpu")):
+            cdef.cdef_frame_device(planes, skip, *K6_EDGE_STRENGTHS, 4, bd, w,
+                                   h, device=dev)
+        if not all(np.array_equal(a, b) for a, b in zip(*got)) or all(
+                np.array_equal(a, b) for a, b in zip(got[0], rec)):
+            raise RuntimeError(f"cdef_frame_device at {bd} bits differs "
+                               "from its plain route or filtered nothing")
+        out["checked"] += 1
+    print(json.dumps({"k6_edges": out}))
+    return []
 
 
 def multidevice(card: str, frame, packet, frame_recon, fe,
@@ -3867,7 +4157,6 @@ def main() -> int:
         k: v / NFRAMES for k, v in cap.bounds.items()}, "card": card}))
     results = check_kernels(cap.calls, counts, NFRAMES)
     check_modes(cap.calls, "keyframes", card, timed=True)
-    check_every(cap, "keyframes", card)
     fwd_sums_only(cap.calls, card)
     t3 = time.perf_counter()
     summary = check_output(data, recon, fes, FILTER_FRAMES)
@@ -3908,6 +4197,7 @@ def main() -> int:
     print(json.dumps({"breakdown": breakdown(frames[:BREAKDOWN_FRAMES],
                                              "--profile" in sys.argv),
                       "card": card}))
+    check_every(cap, "keyframes", card)
     # each later phase's wall seconds, beside phases 1-7's together
     walls = {"phases_1_7": time.perf_counter() - t_start}
     for name, phase in (
@@ -3919,7 +4209,8 @@ def main() -> int:
             ("13_tiles", lambda: tiles(card)),
             ("14_multidevice", lambda: multidevice(card, *tiles.first)),
             ("15_analysis", lambda: analysis(card, key_fps)),
-            ("16_segmentation", lambda: seg_gop(card))):
+            ("16_segmentation", lambda: seg_gop(card)),
+            ("17_k6_edges", lambda: k6_edges(card))):
         t_ph = time.perf_counter()
         results += phase()
         walls[name] = time.perf_counter() - t_ph

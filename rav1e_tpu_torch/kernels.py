@@ -42,14 +42,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # launches in frame mode (the whole restored plane, no unit choice) and
 # "me_fullpel_frame" for me_fullpel's launches from the host inter path's
 # frame_me_map, "wiener_lr_decide" for wiener_lr's launches from the LR
-# decision of a chain without its LR stage (ops/lrf.py lr_decide_device);
+# decision of a chain without its LR stage (ops/lrf.py lr_decide_device),
+# "cfl_decide" for cfl's launches in its decide mode (the CFL-vs-DC
+# choice after K2 and K3);
 # "frame_rd_maps" counts that route's calls on the card (each launches
 # intra_pred and fwd_txq twice, at n = 32 and 16), and "wavefront_tiles"
 # the key frames whose pass ran on the card over their tile columns
 # (parallel/tiles.py; K1-K3 and K11 launch inside it)
 COUNTS = {k: 0 for k in KERNELS + ("fwd_txq_thin", "wiener_lr_frame",
                                    "wiener_lr_decide", "me_fullpel_frame",
-                                   "frame_rd_maps", "wavefront_tiles")}
+                                   "cfl_decide", "frame_rd_maps",
+                                   "wavefront_tiles")}
 # nvcc's output of the last build of each kernel (ptxas: registers, spills)
 BUILD_LOGS: dict = {}
 _LIBS: dict = {}
@@ -77,7 +80,8 @@ ARGTYPES = {
                 _ci, _ci, _ci, _ci, _ci, _ci, _vp, _vp, _vp, _ci, _vp, _vp,
                 _vp],
     "me_fullpel": [_vp, _ci, _vp, _ci, _ci, _ci, _ci, _vp, _vp, _vp],
-    "cfl": [_vp, _ci, _ci, _vp, _vp, _ci, _vp, _vp, _vp, _vp],
+    "cfl_fit": [_vp] * 6 + [_ci] * 11 + [_vp],
+    "cfl_decide": [_vp] * 22 + [_ci] * 17 + [_vp],
     "mode_sad": [_vp, _ci, _ci, _ci, _vp, _ci, _ci, _vp, _vp, _vp, _vp, _vp],
     "dr_predict": [_vp, _vp, _vp, _ci, _ci, _ci, _vp, _vp, _vp],
     "build_edges": [_vp, _ci, _ci, _ci] + [_vp] * 6 + [_ci] * 6
@@ -89,9 +93,12 @@ _ENTRY = {"intra_pred": "intra_pred", "fwd_txq": "fwd_txq",
           "inv_txfm": "inv_txfm", "deblock": "deblock_pass",
           "cdef_dir": "cdef_dir", "cdef_filter": "cdef_filter",
           "wiener_solve": "wiener_solve", "wiener_lr": "wiener_lr",
-          "mc_pred": "mc_pred", "me_fullpel": "me_fullpel", "cfl": "cfl",
+          "mc_pred": "mc_pred", "me_fullpel": "me_fullpel", "cfl": "cfl_fit",
+          "cfl_decide": "cfl_decide",
           "mode_sad": "mode_sad", "dr_predict": "dr_predict",
           "build_edges": "build_edges", "cdef_decide": "cdef_decide"}
+# entries whose kernel is built from another kernel's source
+_SOURCE = {"cfl_decide": "cfl"}
 
 
 def reset_counts() -> None:
@@ -157,11 +164,7 @@ def lib(name: str):
     if L is None:
         if _stale(name):
             build_all([name])
-        L = ctypes.CDLL(str(_so(name)))
-        fn = getattr(L, _ENTRY[name])
-        fn.argtypes = ARGTYPES[_ENTRY[name]]
-        fn.restype = ctypes.c_int
-        _LIBS[name] = L
+        L = _LIBS[name] = ctypes.CDLL(str(_so(name)))
     return L
 
 
@@ -172,7 +175,8 @@ def check(rc: int, name: str) -> None:
 
 
 def launch(name: str, on, *args, count: str | None = None) -> None:
-    """Launch kernel `name` on `args` and the current stream of tensor
+    """Launch kernel `name` (its entry _ENTRY[name], built from
+    _SOURCE.get(name, name)) on `args` and the current stream of tensor
     `on`'s device, with that device current, and count it under `count`
     (`name` by default).  The device guard is entered only when `on` lies
     on another device than the current one."""
@@ -184,7 +188,10 @@ def launch(name: str, on, *args, count: str | None = None) -> None:
                          "CUDA device")
     fn = _FNS.get(name)
     if fn is None:
-        fn = _FNS[name] = getattr(lib(name), _ENTRY[name])
+        fn = getattr(lib(_SOURCE.get(name, name)), _ENTRY[name])
+        fn.argtypes = ARGTYPES[_ENTRY[name]]
+        fn.restype = ctypes.c_int
+        _FNS[name] = fn
     if dev != torch._C._cuda_getDevice():
         with torch.cuda.device(dev):
             return launch(name, on, *args, count=count)

@@ -418,9 +418,8 @@ class WavefrontPass(torch.nn.Module):
         uv_mode = torch.zeros_like(mode)
         if self.cfl_on:
             out_p, out_l, out_i, out_r, alpha, uv_mode = self._cfl(
-                recon_y, out_p, src, out_l, out_i, out_r,
-                dd[:, :, 0] + lam[:, None] * rate[:, :, 0], lam, qdc, qac,
-                mode, tabs)
+                recon_y, out_p, src, out_l, out_i, out_r, dd[:, :, 0], lam,
+                qdc, qac, mode, tabs)
         if self.uv_search:
             bits_uv14, _bs, _ba, bits_angle = tabs
             costs = []
@@ -445,14 +444,16 @@ class WavefrontPass(torch.nn.Module):
             alpha = torch.where(non_dc[:, None], 0, alpha)
         return out_p, out_l, out_i, uv_mode, out_r, alpha
 
-    def _cfl(self, recon_y, pred_dc, src, lv_dc, inv_dc, rate_dc_c, cost_dc,
+    def _cfl(self, recon_y, pred_dc, src, lv_dc, inv_dc, rate_dc, dd_dc,
              lam, qdc, qac, mode, tabs):
         """CFL against DC for both planes (wavefront.py:709-762): the AC
-        values, the alpha fit, the prediction and residual (K11), each
-        plane's transform (K2, K3) and RD cost, and the CFL-vs-DC choice
-        with the uv-mode, sign and alpha symbol rates.  A plane whose alpha
-        is 0 keeps DC.  Returns the chosen (pred, levels, inverse, rates)
-        per plane, the alphas and the uv mode id (13 where CFL won)."""
+        values, the alpha fit, the prediction and residual (K11's fit),
+        each plane's transform (K2, K3), then K11's decision: the RD costs
+        (dd_dc, rate_dc: the DC outcome's pixel SSE and coefficient rates)
+        and the CFL-vs-DC choice with the uv-mode, sign and alpha symbol
+        rates.  A plane whose alpha is 0 keeps DC.  Returns the chosen
+        (pred, levels, inverse, rates) per plane, the alphas and the uv
+        mode id (13 where CFL won)."""
         bd = self.bd
         Bn = recon_y.shape[0]
         n2 = pred_dc.shape[-1]
@@ -462,32 +463,8 @@ class WavefrontPass(torch.nn.Module):
         lc, dqc, _t, ratec = tt.fwd_txq(rc, Fv, FhT, q2(qdc), q2(qac), 0,
                                         bit_depth=bd)
         ic = tt.inv_txfm(dqc, tn.DCT_DCT, bd)
-        cost_cfl = self._sse(rc, ic) + lam[:, None] * ratec  # (B, 2)
-        cost_cfl = torch.where(alpha == 0, cost_dc, cost_cfl)
-        bits_uv14, bits_sign, bits_alpha, _ang = tabs
-        a_u, a_v = alpha[:, 0].long(), alpha[:, 1].long()
-        # sign codes: 0 zero, 1 negative, 2 positive
-        su = torch.where(a_u == 0, 0, torch.where(a_u < 0, 1, 2))
-        sv = torch.where(a_v == 0, 0, torch.where(a_v < 0, 1, 2))
-        rate_dc = bits_uv14[mode, 0]
-        rate_cfl = bits_uv14[mode, 13] + bits_sign[
-            torch.clamp(su * 3 + sv - 1, min=0)]
-        rate_cfl = rate_cfl + torch.where(
-            su > 0, bits_alpha[torch.where(su == 2, 3, 0) + sv,
-                               torch.clamp(a_u.abs() - 1, min=0)], 0.0)
-        rate_cfl = rate_cfl + torch.where(
-            sv > 0, bits_alpha[torch.where(sv == 2, 3, 0) + su,
-                               torch.clamp(a_v.abs() - 1, min=0)], 0.0)
-        use_cfl = ((a_u != 0) | (a_v != 0)) & (
-            cost_cfl[:, 0] + cost_cfl[:, 1] + lam * rate_cfl
-            < cost_dc[:, 0] + cost_dc[:, 1] + lam * rate_dc)
-        take = use_cfl[:, None] & (alpha != 0)  # (B, 2)
-        t4 = take[:, :, None, None]
-        return (torch.where(t4, pc, pred_dc), torch.where(t4, lc, lv_dc),
-                torch.where(t4, ic, inv_dc),
-                torch.where(take, ratec, rate_dc_c),
-                torch.where(take, alpha, 0),
-                torch.where(use_cfl, 13, torch.zeros_like(mode)))
+        return ij.cfl_decide(rc, ic, lc, ratec, alpha, pc, pred_dc, lv_dc,
+                             inv_dc, dd_dc, rate_dc, lam, mode, tabs)
 
     def encode_leaf(self, ctxY, ctxU, ctxV, sYt, sUt, sVt, ly, lx, n, av4,
                     lam, qdc, qac, allow_z1, tabs, inter=None):

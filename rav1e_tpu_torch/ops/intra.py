@@ -3,7 +3,8 @@ with ops/intra_np.py.
 
 Counterpart of rav1e_tpu/ops/intra_jax.py (predict_dirs, dir_matrices,
 dc_predict; cfl_ac_420_batch and cfl_predict_batch with the wavefront's
-alpha fit, K11; dr_predict_batch, K13; predict_stack over K1 and K13;
+alpha fit, K11's fit mode, and the wavefront's CFL-vs-DC choice, its
+decide mode; dr_predict_batch, K13; predict_stack over K1 and K13;
 build_edges_batch, K14) and of the wavefront's _nondir_preds.  NORMATIVE (spec 7.11.2):
 the wavefront encoder reconstructs with these predictions.  Edge filtering
 and upsampling are off in this encoder's streams.
@@ -338,13 +339,14 @@ def intra_pred(above, left, ha: torch.Tensor, hl: torch.Tensor, n: int,
 
 def cfl_plain(luma: torch.Tensor, dc: torch.Tensor, src: torch.Tensor,
               bd: int = 8):
-    """Plain version of K11.  luma: (B, n, n) reconstructed luma blocks;
-    dc, src: (B, 2, n/2, n/2) the DC predictions and sources of U and V.
-    Returns (alpha (B, 2), pred (B, 2, n/2, n/2), resid = src - pred), all
-    int32: the AC values of the 2x2 luma sums (cfl_ac_420_batch), each
-    plane's alpha fitted to src - dc (exact int64 sums, each rounded to
-    float32 once, the quotient rounded half to even, clipped to +-16, 0
-    for flat luma) and the CFL prediction (cfl_predict_batch)."""
+    """Plain version of K11's fit.  luma: (B, n, n) reconstructed luma
+    blocks; dc, src: (B, 2, n/2, n/2) the DC predictions and sources of U
+    and V.  Returns (alpha (B, 2), pred (B, 2, n/2, n/2), resid = src -
+    pred), all int32: the AC values of the 2x2 luma sums
+    (cfl_ac_420_batch), each plane's alpha fitted to src - dc (exact int64
+    sums, each rounded to float32 once, the quotient rounded half to even,
+    clipped to +-16, 0 for flat luma) and the CFL prediction
+    (cfl_predict_batch)."""
     y = luma.to(torch.int64)
     L = (y[:, 0::2, 0::2] + y[:, 0::2, 1::2] + y[:, 1::2, 0::2]
          + y[:, 1::2, 1::2]) << 1
@@ -365,10 +367,64 @@ def cfl_plain(luma: torch.Tensor, dc: torch.Tensor, src: torch.Tensor,
             (src.to(torch.int64) - pred).to(torch.int32))
 
 
+def cfl_decide_plain(rc, ic, lc, ratec, alpha, pc, pred_dc, lv_dc, inv_dc,
+                     dd_dc, rate_dc, lam, mode, tabs):
+    """Plain version of K11's decision: CFL against DC for both planes
+    (wavefront.py:726-762 of the JAX package).  The CFL side: the
+    residual rc, its inverse ic and levels lc (B, 2, n2, n2) after K2 and
+    K3, their coefficient rates ratec (B, 2), the alphas and the CFL
+    prediction pc; the DC side: pred_dc, lv_dc, inv_dc (B, 2, n2, n2),
+    the pixel SSE dd_dc and the coefficient rates rate_dc (B, 2).  lam,
+    mode (B,); tabs: the pass's (bits_uv14, bits_sign, bits_alpha).
+    Each plane's CFL SSE is an exact integer sum rounded to float32 once;
+    a plane whose alpha is 0 costs its DC cost.  Returns the chosen
+    (pred, levels, inverse) per plane, the rates (B, 2), the alphas kept
+    (0 where DC stays) and the uv mode (13 where CFL won, else 0)."""
+    bits_uv14, bits_sign, bits_alpha = tabs[:3]
+    lam2 = lam[:, None]
+    cost_dc = dd_dc + lam2 * rate_dc  # (B, 2)
+    sse = ((rc.to(torch.int64) - ic.to(torch.int64)) ** 2).sum(
+        (-1, -2)).to(torch.float32)
+    cost_cfl = torch.where(alpha == 0, cost_dc, sse + lam2 * ratec)
+    a_u, a_v = alpha[:, 0].long(), alpha[:, 1].long()
+    # sign codes: 0 zero, 1 negative, 2 positive
+    su = torch.where(a_u == 0, 0, torch.where(a_u < 0, 1, 2))
+    sv = torch.where(a_v == 0, 0, torch.where(a_v < 0, 1, 2))
+    rate_dc_uv = bits_uv14[mode, 0]
+    rate_cfl = bits_uv14[mode, 13] + bits_sign[
+        torch.clamp(su * 3 + sv - 1, min=0)]
+    rate_cfl = rate_cfl + torch.where(
+        su > 0, bits_alpha[torch.where(su == 2, 3, 0) + sv,
+                           torch.clamp(a_u.abs() - 1, min=0)], 0.0)
+    rate_cfl = rate_cfl + torch.where(
+        sv > 0, bits_alpha[torch.where(sv == 2, 3, 0) + su,
+                           torch.clamp(a_v.abs() - 1, min=0)], 0.0)
+    use_cfl = ((a_u != 0) | (a_v != 0)) & (
+        cost_cfl[:, 0] + cost_cfl[:, 1] + lam * rate_cfl
+        < cost_dc[:, 0] + cost_dc[:, 1] + lam * rate_dc_uv)
+    take = use_cfl[:, None] & (alpha != 0)  # (B, 2)
+    t4 = take[:, :, None, None]
+    return (torch.where(t4, pc, pred_dc), torch.where(t4, lc, lv_dc),
+            torch.where(t4, ic, inv_dc), torch.where(take, ratec, rate_dc),
+            torch.where(take, alpha, 0),
+            torch.where(use_cfl, 13, torch.zeros_like(mode)))
+
+
+def _rows(t: torch.Tensor, dtype) -> torch.Tensor:
+    """t as K11 reads it in place: dtype, unit column stride (else a
+    copy)."""
+    if t.dtype != dtype or t.stride(-1) != 1:
+        t = t.to(dtype).contiguous()
+    return t
+
+
 def cfl(luma: torch.Tensor, dc: torch.Tensor, src: torch.Tensor,
         bd: int = 8):
     """CFL fit and prediction of B blocks of n x n luma (n in 8, 16, 32)
-    and their U and V (K11); see cfl_plain."""
+    and their U and V (K11's fit mode, one launch); see cfl_plain.  The
+    inputs are read in place through their strides (the DC prediction as
+    a view of K1's candidate stack) where their columns are contiguous
+    int32."""
     if luma.device.type == "cpu":
         return cfl_plain(luma, dc, src, bd)
     B, n, _ = luma.shape
@@ -377,15 +433,54 @@ def cfl(luma: torch.Tensor, dc: torch.Tensor, src: torch.Tensor,
             dc.shape != (B, 2, n2, n2) or src.shape != dc.shape:
         raise ValueError("cfl: luma (B, n, n) with n in 8, 16, 32 and dc, "
                          "src (B, 2, n/2, n/2)")
-    y = luma.to(torch.int32).contiguous()
-    d = dc.to(torch.int32).contiguous()
-    s = src.to(torch.int32).contiguous()
+    y, d, s = (_rows(t, torch.int32) for t in (luma, dc, src))
     alpha = torch.empty((B, 2), dtype=torch.int32, device=y.device)
-    pred = torch.empty_like(d)
-    resid = torch.empty_like(d)
-    kernels.launch("cfl", y, y.data_ptr(), B, n, d.data_ptr(), s.data_ptr(),
-                   bd, alpha.data_ptr(), pred.data_ptr(), resid.data_ptr())
-    return alpha, pred, resid
+    out = torch.empty((2, B, 2, n2, n2), dtype=torch.int32, device=y.device)
+    kernels.launch("cfl", y, y.data_ptr(), d.data_ptr(), s.data_ptr(),
+                   alpha.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+                   B, n2, bd, *y.stride()[:2], *d.stride()[:3],
+                   *s.stride()[:3])
+    return alpha, out[0], out[1]
+
+
+def cfl_decide(rc, ic, lc, ratec, alpha, pc, pred_dc, lv_dc, inv_dc, dd_dc,
+               rate_dc, lam, mode, tabs):
+    """K11's decide mode, one launch: CFL against DC for both planes; see
+    cfl_decide_plain.  The DC side, lam and mode are read in place through
+    their strides."""
+    if rc.device.type == "cpu":
+        return cfl_decide_plain(rc, ic, lc, ratec, alpha, pc, pred_dc,
+                                lv_dc, inv_dc, dd_dc, rate_dc, lam, mode,
+                                tabs)
+    B, _, n2, _ = rc.shape
+    shp = (B, 2, n2, n2)
+    if n2 not in (4, 8, 16) or mode.dtype != torch.int64 or any(
+            t.shape != shp for t in (rc, ic, lc, pc, pred_dc, lv_dc, inv_dc)) \
+            or any(t.shape != (B, 2) for t in (ratec, alpha, dd_dc, rate_dc)):
+        raise ValueError("cfl_decide: blocks (B, 2, n2, n2) with n2 in 4, 8, "
+                         "16, per-plane (B, 2) rates, costs and alphas, "
+                         "int64 modes")
+    i32, f32 = torch.int32, torch.float32
+    rc, ic, lc, pc, alpha, ratec = (
+        t if t.dtype == dt and t.is_contiguous() else t.to(dt).contiguous()
+        for t, dt in ((rc, i32), (ic, i32), (lc, i32), (pc, i32),
+                      (alpha, i32), (ratec, f32)))
+    p_dc, l_dc, i_dc = (_rows(t, i32) for t in (pred_dc, lv_dc, inv_dc))
+    dd, rd = (t if t.dtype == f32 else t.to(f32) for t in (dd_dc, rate_dc))
+    lam = lam if lam.dtype == f32 else lam.to(f32)
+    tab = [t if t.dtype == f32 and t.is_contiguous() else
+           t.to(f32).contiguous() for t in tabs[:3]]
+    dev = rc.device
+    out = torch.empty((3,) + shp, dtype=i32, device=dev)
+    o_a = torch.empty((B, 2), dtype=i32, device=dev)
+    o_r = torch.empty((B, 2), dtype=f32, device=dev)
+    o_uv = torch.empty((B,), dtype=torch.int64, device=dev)
+    kernels.launch("cfl_decide", rc, *(t.data_ptr() for t in (
+        rc, ic, lc, pc, alpha, ratec, p_dc, l_dc, i_dc, dd, rd, lam, mode,
+        *tab, out[0], out[1], out[2], o_a, o_r, o_uv)), B, n2,
+        *p_dc.stride()[:3], *l_dc.stride()[:3], *i_dc.stride()[:3],
+        *dd.stride(), *rd.stride(), *lam.stride(), *mode.stride())
+    return out[0], out[1], out[2], o_r, o_a, o_uv
 
 
 # -- K13 dr_predict, predict_stack --------------------------------------------------

@@ -7,6 +7,7 @@ also its channel lists, two planes a call and the race, inv_txfm, also
 at every size class, fused with the prediction and over 64x64's 32x32
 corner, deblock, cdef_dir, cdef_filter, wiener_solve, wiener_lr, also
 in frame mode, mc_pred, me_fullpel, also through frame_me_map, and cfl,
+its fit on strided views and its decide mode,
 the four of the leaves also at the speed-3 pass's 8x8 and 4x4 shapes,
 and above 8 bits cdef_dir, cdef_filter, wiener_lr in frame mode and
 me_fullpel on uint16 planes; frame_rd_maps by its tie rule;
@@ -693,13 +694,14 @@ def test_mixed_gop_on_card_conforms(monkeypatch):
     kernels.reset_counts()
     data, recon, fes = chip_smoke.encode(make_frames(320, 240, 3), check=True,
                                          mixed=True)
-    # every counter but the speed-5 path's own (cfl, K8's frame mode), the
-    # host inter path's (frame_me_map), the host key walk's
-    # (frame_rd_maps), the tile route's (wavefront_tiles), the unfused LR
-    # route's (wiener_lr_decide) and the analysis kernels', as
+    # every counter but the speed-5 path's own (cfl in both its modes,
+    # K8's frame mode), the host inter path's (frame_me_map), the host key
+    # walk's (frame_rd_maps), the tile route's (wavefront_tiles), the
+    # unfused LR route's (wiener_lr_decide) and the analysis kernels', as
     # chip_smoke.py's mixed-GOP phase counts them
     assert all(v > 0 for k, v in kernels.COUNTS.items()
-               if k not in ("cfl", "wiener_lr_frame", "me_fullpel_frame",
+               if k not in ("cfl", "cfl_decide", "wiener_lr_frame",
+                            "me_fullpel_frame",
                             "frame_rd_maps", "wavefront_tiles",
                             "wiener_lr_decide")
                + chip_smoke.ANALYSIS_KERNELS), kernels.COUNTS
@@ -733,6 +735,80 @@ def test_cfl_kernel(n):
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
     assert (got[0][:50] == 0).all() and got[0].abs().max() > 0
+
+
+@pytest.mark.parametrize("n", [8, 16, 32])
+def test_cfl_fit_reads_strided_views(n):
+    """K11's fit on the views the pass gives it (the DC prediction as
+    channel 0 of a K1 candidate stack, the sources transposed, luma a
+    column window) equals its plain version and its contiguous call."""
+    from rav1e_tpu_torch.ops import intra
+
+    dev = _card()
+    rng = np.random.default_rng(SEED + 2 * n)
+    B, n2 = 45, n // 2
+    t = lambda a: torch.as_tensor(a.astype(np.int32), device=dev)
+    wide = t(rng.integers(0, 256, (B, n, n + 8)))
+    stack = t(rng.integers(0, 256, (B, 2, 7, 1, 1)).repeat(n2, 3)
+              .repeat(n2, 4))
+    src = t(rng.integers(0, 256, (2, B, n2, n2))).transpose(0, 1)
+    args = (wide[:, :, 4 : 4 + n], stack[:, :, 0], src)
+    got = intra.cfl(*args)
+    for g, r, c in zip(got, intra.cfl_plain(*args),
+                       intra.cfl(*(a.contiguous() for a in args))):
+        assert torch.equal(g, r) and torch.equal(g, c)
+
+
+def _decide_inputs(rng, B, n2, dev, tie):
+    """Inputs of K11's decide mode as the arm passes them: the CFL side
+    contiguous, the DC side views of 7-candidate stacks, lam a strided
+    view; with tie, CFL costs exactly DC's on every block."""
+    t = lambda a, dt=np.int32: torch.as_tensor(a.astype(dt), device=dev)
+    blk = lambda lo, hi: t(rng.integers(lo, hi, (B, 2, n2, n2)))
+    rc, lc = blk(-255, 256), blk(-20, 21)
+    ic = rc + blk(-20, 21)
+    alpha = t(rng.integers(-16, 17, (B, 2)) * (rng.random((B, 2)) < 0.8))
+    ratec = t(rng.uniform(0, 300, (B, 2)), np.float32)
+    stacks = [t(rng.integers(lo, hi, (B, 2, 7, n2, n2)))
+              for lo, hi in ((0, 256), (-20, 21), (-255, 256))]
+    dd = t(rng.uniform(0, 300 * n2 * n2, (B, 2, 7)), np.float32)
+    rate = t(rng.uniform(0, 300, (B, 2, 7)), np.float32)
+    lam = t(rng.uniform(5, 500, (B, 3)), np.float32)[:, 1]
+    tabs = [t(rng.uniform(0.5, 9, sh), np.float32)
+            for sh in ((13, 14), (8,), (6, 16))]
+    if tie:
+        ic = rc.clone()
+        alpha[alpha == 0] = 5
+        dd.zero_()
+        rate[:, :, 0] = ratec
+        tabs[0][:, 0], tabs[0][:, 13] = 3.0, 1.0
+        tabs[1][:], tabs[2][:] = 1.0, 0.5
+    mode = torch.as_tensor(rng.integers(0, 13, B), device=dev)
+    return (rc, ic, lc, ratec, alpha, blk(0, 256), stacks[0][:, :, 0],
+            stacks[1][:, :, 0], stacks[2][:, :, 0], dd[:, :, 0],
+            rate[:, :, 0], lam, mode, tuple(tabs))
+
+
+@pytest.mark.parametrize("n2,tie", [(4, False), (8, False), (16, False),
+                                    (16, True)])
+def test_cfl_decide_kernel(n2, tie):
+    """K11's decide mode (one launch) identical to cfl_decide_plain on
+    mixed outcomes, and on blocks whose CFL cost ties DC's exactly (the
+    strict < keeps DC)."""
+    from rav1e_tpu_torch import kernels
+    from rav1e_tpu_torch.ops import intra
+
+    dev = _card()
+    rng = np.random.default_rng(SEED + n2 + tie)
+    a = _decide_inputs(rng, 600, n2, dev, tie)
+    before = kernels.COUNTS["cfl_decide"]
+    got = intra.cfl_decide(*a)
+    assert kernels.COUNTS["cfl_decide"] == before + 1
+    ref = intra.cfl_decide_plain(*a)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.equal(g, r)
+    won = int((got[5] == 13).sum())
+    assert won == 0 if tie else 0 < won < 600
 
 
 @pytest.mark.parametrize("stripe", [64, 32])
@@ -778,6 +854,8 @@ def test_speed5_on_card_conforms(monkeypatch):
     assert all(counts[k] > 0 for k in ("cfl", "cdef_dir", "cdef_filter",
                                        "wiener_lr_frame", "mc_pred")), counts
     assert counts["deblock"] == counts["wiener_solve"] == 0, counts
+    # the CFL arm: K11's fit and its decide mode once each a call
+    assert counts["cfl_decide"] == counts["cfl"], counts
     assert chip_smoke.encode.cfl_blocks > 0
     summary = chip_smoke.check_output(data, recon, fes, 2)
     assert summary["filter_chain_np_frames"] == 2

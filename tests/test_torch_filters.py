@@ -184,6 +184,40 @@ def test_cdef_filter_chroma_candidate_matches_jax(cdef_planes, uv):
         assert np.array_equal(got.numpy(), ref)
 
 
+@pytest.mark.parametrize("act_kind", ["random", "none", "all"])
+def test_cdef_filter_edge_frame_matches_jax(act_kind):
+    """K6's apply mode with one candidate pair for every superblock (the
+    fixed strengths of cdef_frame_device) on a frame of partial
+    superblocks, 120x200 (height 56 mod 64, width 8 mod 64), with a
+    random, an all-inactive and an all-active block map: every luma and
+    chroma candidate equals _filter_plane_jnp."""
+    rng = np.random.default_rng(SEED + 3)
+    h, w = 120, 200
+    y, u, v = (_content(rng, hh, ww)[1]
+               for hh, ww in ((h, w), (h // 2, w // 2), (h // 2, w // 2)))
+    dirs, var = _maps(rng, h // 8, w // 8)
+    act = {"random": rng.random((h // 8, w // 8)) < 0.7,
+           "none": np.zeros((h // 8, w // 8), bool),
+           "all": np.ones((h // 8, w // 8), bool)}[act_kind]
+    planes = [_t(p) for p in (y, u, v)]
+    for cand in range(8):
+        idx = torch.full((2, 4), cand, dtype=torch.int32)
+        got = tcd.cdef_filter(*planes, *planes, _t(dirs), _t(var), _t(act),
+                              4, tcd.APPLY, idx)
+        pri, sec = jcd.Y_CANDIDATES[cand]
+        pri_map = np.asarray(jcd._adjust_vec_jnp(jnp, pri, jnp.asarray(var)))
+        refs = [_jax_plane(y, dirs if pri else 0 * dirs, pri_map, sec, 4, act,
+                           0)]
+        upri = jcd.UV_CANDIDATES[jcd.PAIR_UV_IDX[cand]][0]
+        refs += [_jax_plane(p, dirs if upri else 0 * dirs,
+                            np.full(dirs.shape, upri, np.int32), 0, 3, act, 1)
+                 for p in (u, v)]
+        for g, r, p in zip(got, refs, (y, u, v)):
+            assert np.array_equal(g.numpy(), r)
+            if act_kind == "none":
+                assert np.array_equal(r, p)
+
+
 @pytest.mark.parametrize("sb_lam,all_skip", [(0.5, False), (np.inf, False),
                                              (0.5, True)])
 def test_cdef_search_matches_jax(sb_lam, all_skip):
